@@ -1,0 +1,121 @@
+"""Orbital state and Keplerian elements (torch port of nyx_tpu/cosmic/orbit.py).
+
+Element conversions are batched functions over trailing-dimension tensors,
+differentiable with `torch.func`; the host `Orbit` class builds a scalar
+state from elements in float64 on the CPU. Anomaly conversions, analytic
+propagation, local frames and the element accessors are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..time import Epoch
+from ..xmath import norm as _norm
+from .frames import Frame
+
+_TWO_PI = 2 * math.pi
+_D2R = np.pi / 180.0
+
+
+def keplerian_from_cartesian(r, v, mu: float):
+    """Osculating Keplerian elements from Cartesian state.
+
+    r [..., 3] km, v [..., 3] km/s. Returns a dict with sma (km), ecc, inc,
+    raan, aop, ta (radians in [0, 2pi)). Circular/equatorial singular cases
+    resolve to 0 angles; angles come from atan2 so the map is smooth under
+    forward-mode AD away from those cases.
+    """
+    rmag = _norm(r)
+    vmag = _norm(v)
+    h = torch.linalg.cross(r, v, dim=-1)
+    hmag = _norm(h)
+    n = torch.stack([-h[..., 1], h[..., 0], torch.zeros_like(hmag)], dim=-1)
+    nmag = _norm(n)
+    rdotv = torch.sum(r * v, dim=-1)
+    e_vec = ((vmag**2 - mu / rmag)[..., None] * r - rdotv[..., None] * v) / mu
+    ecc = _norm(e_vec)
+    energy = vmag**2 / 2 - mu / rmag
+    sma = -mu / (2 * energy)
+    inc = torch.arccos(torch.clamp(h[..., 2] / hmag, -1.0, 1.0))
+
+    circ = ecc < 1e-11
+    equa = nmag < 1e-11
+
+    h_unit = h / hmag[..., None]
+    raan = torch.remainder(torch.atan2(n[..., 1], n[..., 0]), _TWO_PI)
+    raan = torch.where(equa, 0.0, raan)
+
+    ne = torch.sum(n * e_vec, dim=-1)
+    sin_aop = torch.sum(torch.linalg.cross(n, e_vec, dim=-1) * h_unit, dim=-1)
+    aop = torch.remainder(torch.atan2(sin_aop, ne), _TWO_PI)
+    aop_eq = torch.remainder(torch.atan2(e_vec[..., 1], e_vec[..., 0]), _TWO_PI)
+    aop = torch.where(equa, aop_eq, aop)
+    aop = torch.where(circ, 0.0, aop)
+
+    re = torch.sum(r * e_vec, dim=-1)
+    sin_ta = torch.sum(torch.linalg.cross(e_vec, r, dim=-1) * h_unit, dim=-1)
+    ta = torch.remainder(torch.atan2(sin_ta, re), _TWO_PI)
+    ta_circ = torch.remainder(
+        torch.atan2(
+            torch.sum(torch.linalg.cross(n, r, dim=-1) * h_unit, dim=-1),
+            torch.sum(n * r, dim=-1),
+        ),
+        _TWO_PI,
+    )
+    ta_circ_eq = torch.remainder(torch.atan2(r[..., 1], r[..., 0]), _TWO_PI)
+    ta = torch.where(circ, torch.where(equa, ta_circ_eq, ta_circ), ta)
+    return {"sma": sma, "ecc": ecc, "inc": inc, "raan": raan, "aop": aop, "ta": ta}
+
+
+def cartesian_from_keplerian(sma, ecc, inc, raan, aop, ta, mu: float):
+    """Cartesian (r [..., 3], v [..., 3]) from Keplerian elements (radians).
+
+    Supports elliptic and hyperbolic orbits (sma < 0, ecc > 1).
+    """
+    p = sma * (1 - ecc**2)
+    rmag = p / (1 + ecc * torch.cos(ta))
+    cta, sta = torch.cos(ta), torch.sin(ta)
+    r_pqw = torch.stack([rmag * cta, rmag * sta, torch.zeros_like(rmag)], dim=-1)
+    f = torch.sqrt(mu / p)
+    v_pqw = torch.stack([-f * sta, f * (ecc + cta), torch.zeros_like(rmag)], dim=-1)
+
+    cr, sr = torch.cos(raan), torch.sin(raan)
+    ci, si = torch.cos(inc), torch.sin(inc)
+    cw, sw = torch.cos(aop), torch.sin(aop)
+    row0 = torch.stack([cr * cw - sr * sw * ci, -cr * sw - sr * cw * ci, sr * si], dim=-1)
+    row1 = torch.stack([sr * cw + cr * sw * ci, -sr * sw + cr * cw * ci, -cr * si], dim=-1)
+    row2 = torch.stack([sw * si, cw * si, ci], dim=-1)
+    dcm = torch.stack([row0, row1, row2], dim=-2)
+    r = torch.einsum("...ij,...j->...i", dcm, r_pqw)
+    v = torch.einsum("...ij,...j->...i", dcm, v_pqw)
+    return r, v
+
+
+def _f64(x: float):
+    return torch.tensor(x, dtype=torch.float64, device="cpu")
+
+
+@dataclass
+class Orbit:
+    """A Cartesian orbital state at an epoch in a frame (host type); build
+    with `Orbit.keplerian` (angles in degrees)."""
+
+    r_km: np.ndarray  # (3,)
+    v_km_s: np.ndarray  # (3,)
+    epoch: Epoch
+    frame: Frame
+
+    @classmethod
+    def keplerian(
+        cls, sma_km, ecc, inc_deg, raan_deg, aop_deg, ta_deg, epoch: Epoch, frame: Frame
+    ) -> "Orbit":
+        r, v = cartesian_from_keplerian(
+            _f64(sma_km), _f64(ecc), _f64(inc_deg * _D2R), _f64(raan_deg * _D2R),
+            _f64(aop_deg * _D2R), _f64(ta_deg * _D2R), frame.mu,
+        )
+        return cls(r.numpy(), v.numpy(), epoch, frame)

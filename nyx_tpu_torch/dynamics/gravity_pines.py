@@ -1,0 +1,207 @@
+"""The Pines gravity recursion: packed tables, the CUDA kernel, its torch twin.
+
+Port of nyx_tpu/dynamics/gravity_pallas.py. `pack_tables` lays the
+per-degree recursion rows out as one `[n_steps, 8, W_pad]` array, shared by
+the two implementations:
+
+- `pines_accel_cuda`: the hand-written Hopper kernel (`csrc/pines.cu`), f32,
+  on CUDA tensors only;
+- `pines_accel_torch`: the plain PyTorch twin, at the dtype of its input. It
+  is the only path for CPU tensors and the reference the kernel is checked
+  against on the card.
+
+`pines_accel` picks between them by the device of the input alone.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _cuda
+
+_SQRT2 = np.sqrt(2.0)
+_SQRT3 = float(np.sqrt(3.0))
+# Shared memory a block may use without opting in to the dynamic carve-out.
+_STATIC_SMEM_BYTES = 48 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pack_tables(xs, N: int, W: int, q_hi: int = 0, dtype=np.float32) -> np.ndarray:
+    """Host-side packing of the per-degree recursion rows into one
+    `[n_steps, 8, W_pad]` array, n_steps = min(N, q_hi or N).
+
+    Row order: b_row*mask, c_row*mask, diag_vec, offdiag_vec, C*sqrt2,
+    S*sqrt2, vr01, vr11. The one-hot diagonal seeds of the recursion are
+    pre-baked into dense rows so both implementations are pure elementwise
+    work. At float32 the array is bitwise the Pallas kernel's table.
+    """
+    q_hi = q_hi or N
+    n_steps = min(N, q_hi)
+    W_pad = _round_up(W, 8)
+    tab = np.zeros((n_steps, 8, W_pad), dtype)
+    for k in range(n_steps):
+        n = int(xs["n_is"][k])
+        mask = xs["row_mask"][k]
+        tab[k, 0, :W] = xs["b_row"][k] * mask
+        tab[k, 1, :W] = xs["c_row"][k] * mask
+        if n < W:
+            tab[k, 2, n] = xs["diag_n"][k]
+        if n - 1 < W:
+            tab[k, 3, n - 1] = xs["offdiag_n"][k]
+        tab[k, 4, :W] = xs["C_q"][k] * _SQRT2
+        tab[k, 5, :W] = xs["S_q"][k] * _SQRT2
+        tab[k, 6, :W] = xs["vr01_q"][k]
+        tab[k, 7, :W] = xs["vr11_q"][k]
+    return tab
+
+
+def pines_accel_torch(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
+                      diag1: float):
+    """Plain PyTorch Pines recursion from the packed table.
+
+    `r_bf` [B, 3] body-fixed km, `tab` [n_steps, 8, W_pad] at the dtype of
+    `r_bf`; degrees q in (q_lo, n_steps] accumulate. Returns [B, 3] km/s^2.
+    Each operation is the Pallas kernel's, over the full padded width.
+    """
+    if r_bf.is_cuda:
+        pines_accel_torch.cuda_calls += 1
+    dt, dev = r_bf.dtype, r_bf.device
+    n_steps, _, W_pad = tab.shape
+    x, y, z = r_bf[:, 0], r_bf[:, 1], r_bf[:, 2]
+    r = torch.sqrt(x * x + y * y + z * z)
+    inv_r = 1.0 / r
+    s_, t_, u_ = x * inv_r, y * inv_r, z * inv_r
+    rho = (radius * inv_r)[:, None]
+    mu_over_r = (mu * inv_r)[:, None]
+    u = u_[:, None]
+
+    # r_m / i_m: powers of (s + i t), columns m = 0..W-1, zero-padded
+    rms, ims = [torch.ones_like(x)], [torch.zeros_like(x)]
+    for _ in range(1, W):
+        rm, im = rms[-1], ims[-1]
+        rms.append(s_ * rm - t_ * im)
+        ims.append(s_ * im + t_ * rm)
+    pad = [torch.zeros_like(x)] * (W_pad - W)
+    r_ms = torch.stack(rms + pad, dim=1)
+    i_ms = torch.stack(ims + pad, dim=1)
+    zcol = torch.zeros_like(r_ms[:, :1])
+    rm1 = torch.cat([zcol, r_ms[:, :-1]], dim=1)
+    im1 = torch.cat([zcol, i_ms[:, :-1]], dim=1)
+
+    m_f = torch.arange(W_pad, dtype=dt, device=dev)
+    onehot0 = (m_f == 0).to(dt)
+    onehot1 = (m_f == 1).to(dt)
+    row_nm2 = onehot0.expand(r_bf.shape[0], W_pad)
+    row_nm1 = (u * _SQRT3) * onehot0 + diag1 * onehot1
+
+    acc_x = torch.zeros_like(r_ms)
+    acc_y = torch.zeros_like(r_ms)
+    acc_z = torch.zeros_like(r_ms)
+    acc_w = torch.zeros_like(r_ms)
+    rho_q = mu_over_r * rho
+    for k in range(n_steps):
+        b_row, c_row, diag_v, offd_v, c_q, s_q, vr01, vr11 = tab[k]
+        row_n = u * b_row * row_nm1 - c_row * row_nm2 + diag_v + offd_v * u
+        rho_q = rho_q * rho
+        if k + 1 > q_lo:
+            d_ = c_q * r_ms + s_q * i_ms
+            e_ = c_q * rm1 + s_q * im1
+            f_ = s_q * rm1 - c_q * im1
+            row_p1 = torch.cat([row_nm1[:, 1:], zcol], dim=1)
+            row_n_p1 = torch.cat([row_n[:, 1:], zcol], dim=1)
+            rr = rho_q * (1.0 / radius)
+            acc_x = acc_x + (rr * m_f) * row_nm1 * e_
+            acc_y = acc_y + (rr * m_f) * row_nm1 * f_
+            acc_z = acc_z + (rr * vr01) * row_p1 * d_
+            acc_w = acc_w - (rr * vr11) * row_n_p1 * d_
+        row_nm1, row_nm2 = row_n, row_nm1
+
+    ax, ay, az, aw = (_sum_orders(a) for a in (acc_x, acc_y, acc_z, acc_w))
+    return torch.stack([ax + aw * s_, ay + aw * t_, az + aw * u_], dim=1)
+
+
+def _sum_orders(acc):
+    """Sum over the order axis from m = 0 up, the kernel's order: with
+    every other operation also the kernel's, the twin and the kernel give
+    the same f32 bits, so a run through either takes the same steps."""
+    out = acc[:, 0]
+    for m in range(1, acc.shape[1]):
+        out = out + acc[:, m]
+    return out
+
+
+pines_accel_torch.cuda_calls = 0  # calls made on CUDA tensors
+
+
+def _bind():
+    built = _cuda.load("pines")
+    fn = built.lib.pines_accel_f32
+    fn.argtypes = (
+        [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 5
+        + [ctypes.c_float] * 4
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pines_accel_cuda(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
+                     diag1: float):
+    """The Pines recursion on the card (`csrc/pines.cu`), f32.
+
+    Same contract as `pines_accel_torch`. Raises on anything the kernel does
+    not take: a tensor off CUDA, a dtype other than float32, a non-contiguous
+    or misshapen input, or a table too large for a block's shared memory.
+    """
+    if not (r_bf.is_cuda and tab.is_cuda) or r_bf.device != tab.device:
+        raise ValueError("pines_accel_cuda takes CUDA tensors on one device")
+    if r_bf.dtype != torch.float32 or tab.dtype != torch.float32:
+        raise TypeError(f"pines_accel_cuda takes float32, got {r_bf.dtype} and {tab.dtype}")
+    if r_bf.dim() != 2 or r_bf.shape[1] != 3:
+        raise ValueError(f"r_bf must be [B, 3], got {tuple(r_bf.shape)}")
+    if tab.dim() != 3 or tab.shape[1] != 8 or not 2 <= W <= tab.shape[2]:
+        raise ValueError(f"tab must be [n_steps, 8, W_pad >= W={W}], got {tuple(tab.shape)}")
+    if not (r_bf.is_contiguous() and tab.is_contiguous()):
+        raise ValueError("pines_accel_cuda takes contiguous tensors")
+    n_steps, _, W_pad = tab.shape
+    smem = 4 * n_steps * 8 * W_pad
+    if smem > _STATIC_SMEM_BYTES:
+        raise ValueError(
+            f"packed table of {smem} B exceeds the kernel's {_STATIC_SMEM_BYTES} B of "
+            "shared memory (fields above about degree 36)"
+        )
+    out = torch.empty_like(r_bf)
+    B = r_bf.shape[0]
+    if B == 0:
+        return out
+    fn = _bind()
+    with torch.cuda.device(r_bf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            r_bf.data_ptr(), tab.data_ptr(), out.data_ptr(),
+            B, n_steps, W, W_pad, int(q_lo),
+            float(np.float32(mu)), float(np.float32(radius)),
+            float(np.float32(1.0 / radius)), float(np.float32(diag1)),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pines kernel launch failed with CUDA error {err}")
+    pines_accel_cuda.launches += 1
+    return out
+
+
+pines_accel_cuda.launches = 0  # successful kernel launches
+
+
+def pines_accel(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
+                diag1: float):
+    """The kernel for a CUDA tensor, the twin for a CPU tensor."""
+    fn = pines_accel_cuda if r_bf.is_cuda else pines_accel_torch
+    return fn(r_bf, tab, q_lo, W=W, mu=mu, radius=radius, diag1=diag1)

@@ -1,0 +1,92 @@
+"""SpacecraftDynamics: the composition root.
+
+Torch port of nyx_tpu/dynamics/spacecraft_dyn.py without STM or guidance:
+orbital dynamics + force models (SRP, drag) as one batched EOM over `[B, 9]`
+float64 states [x,y,z,vx,vy,vz,Cr,Cd,m_prop]. The force models evaluate in
+float32 and their sum is cast back to the state dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..time import Epoch
+from .orbital import EomContext, OrbitalDynamics
+
+CORE_DIM = 9
+
+
+class SpacecraftDynamics:
+    def __init__(self, orbital_dyn: OrbitalDynamics, force_models: Sequence = ()):
+        self.orbital_dyn = orbital_dyn
+        self.force_models = tuple(force_models)
+
+    def required_bodies(self):
+        bodies = list(self.orbital_dyn.required_bodies())
+        for fm in self.force_models:
+            bodies.extend(fm.required_bodies())
+        seen, out = set(), []
+        center = self.orbital_dyn.frame.center
+        for b in bodies:
+            if b != center and b not in seen:
+                seen.add(b)
+                out.append(b)
+        return out
+
+    def build_context(self, epoch0: Epoch, duration_s: float, almanac, *, device) -> EomContext:
+        """Constants of one propagation: its TDB start and, when a model
+        needs bodies, their Chebyshev table over the arc on `device`."""
+        frame = self.orbital_dyn.frame
+        bodies = self.required_bodies()
+        table = None
+        if bodies:
+            end = epoch0 + max(duration_s, 0.0)
+            start = epoch0 + min(duration_s, 0.0)
+            table = almanac.build_table(bodies, frame.center, start, end, device=device)
+        return EomContext(epoch0_tdb=epoch0.to_tdb_seconds(), table=table, frame=frame)
+
+    def make_eom(self):
+        """`eom(t_rel_s [B], y [B, 9], ctx, sc_params) -> [B, 9]`. `sc_params`
+        holds dry_mass_kg, srp_area_m2 and drag_area_m2 (floats)."""
+
+        def eom(t_rel, y9, ctx, p):
+            t_tdb = ctx.epoch0_tdb + t_rel
+            r = y9[..., 0:3]
+            v = y9[..., 3:6]
+            cr = y9[..., 6]
+            cd = y9[..., 7]
+            m_prop = y9[..., 8]
+            mass = p["dry_mass_kg"] + m_prop
+            a = self.orbital_dyn.accel(ctx, t_tdb, r, v)
+            if self.force_models:
+                # SRP and drag are <= ~1e-9 km/s^2: f32 rounding of the force
+                # lands far below the integrator tolerance on the total
+                fdt = torch.float32 if r.dtype == torch.float64 else r.dtype
+                sc32 = dict(
+                    cr=cr.to(fdt),
+                    cd=cd.to(fdt),
+                    srp_area_m2=p["srp_area_m2"],
+                    drag_area_m2=p["drag_area_m2"],
+                    mass_kg=mass.to(fdt),
+                )
+                r32, v32 = r.to(fdt), v.to(fdt)
+                f = torch.zeros_like(r32)
+                for fm in self.force_models:
+                    f = f + fm.force_per_mass(ctx, t_tdb, r32, v32, sc32)
+                a = a + f.to(r.dtype)
+            zeros = torch.zeros_like(cr)
+            return torch.cat([v, a, torch.stack([zeros, zeros, zeros], dim=-1)], dim=-1)
+
+        return eom
+
+    def make_finally(self):
+        """Post-accepted-step hook: clamps Cr into [0, 2]."""
+
+        def finally_fn(t_rel, y, ctx, p):
+            y = y.clone()
+            y[..., 6] = torch.clamp(y[..., 6], 0.0, 2.0)
+            return y
+
+        return finally_fn

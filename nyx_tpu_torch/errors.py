@@ -1,0 +1,23 @@
+"""Exception classes the port raises.
+
+Copied from nyx_tpu/errors.py: one class per layer, each also subclassing
+the builtin (`ValueError`) the caller may already catch, under the common
+`NyxError`. The reference's other classes are not needed yet.
+"""
+
+from __future__ import annotations
+
+__all__ = ["NyxError", "StateError", "ConfigError"]
+
+
+class NyxError(Exception):
+    """Base class for every framework-originated error (errors.rs:30)."""
+
+
+class StateError(NyxError, ValueError):
+    """Invalid state/parameter access (errors.rs StateError: 'param is
+    unavailable in this context', read-only parameters, ...)."""
+
+
+class ConfigError(NyxError, ValueError):
+    """Invalid or inconsistent configuration (io/mod.rs ConfigError)."""

@@ -1,0 +1,20 @@
+"""Host-facing Propagator setup (torch port of nyx_tpu/propagators/propagator.py)."""
+
+from __future__ import annotations
+
+from .options import IntegratorOptions
+from .tableaus import IntegratorMethod
+
+
+class Propagator:
+    """Immutable propagator setup: dynamics + method + options."""
+
+    def __init__(self, dynamics, method: IntegratorMethod = IntegratorMethod.RK89,
+                 opts: IntegratorOptions = None):
+        self.dynamics = dynamics
+        self.method = method
+        self.opts = opts or IntegratorOptions()
+
+    @classmethod
+    def rk89(cls, dynamics, opts=None) -> "Propagator":
+        return cls(dynamics, IntegratorMethod.RK89, opts)

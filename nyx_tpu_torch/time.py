@@ -1,0 +1,171 @@
+"""Epochs and durations (port of the core of nyx_tpu/time.py).
+
+The host-side `Epoch` keeps two-part precision (integer TAI seconds past
+J2000 + fractional seconds); device code works with plain float64 seconds
+past J2000 in one scale (TAI or TDB). Scales: TAI (canonical), TT, TDB, UTC,
+GPS. The host code is copied from the reference; only the tensor branch of
+`tdb_minus_tt` uses torch. Julian dates, ISO strings and Gregorian output
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from .errors import ConfigError
+
+SECONDS_PER_DAY = 86_400.0
+TT_MINUS_TAI = 32.184
+GPS_MINUS_TAI = -19.0
+
+# Leap seconds: the IERS table as (year, month, day, TAI-UTC seconds).
+_LEAP_TABLE = [
+    (1972, 1, 1, 10), (1972, 7, 1, 11), (1973, 1, 1, 12), (1974, 1, 1, 13),
+    (1975, 1, 1, 14), (1976, 1, 1, 15), (1977, 1, 1, 16), (1978, 1, 1, 17),
+    (1979, 1, 1, 18), (1980, 1, 1, 19), (1981, 7, 1, 20), (1982, 7, 1, 21),
+    (1983, 7, 1, 22), (1985, 7, 1, 23), (1988, 1, 1, 24), (1990, 1, 1, 25),
+    (1991, 1, 1, 26), (1992, 7, 1, 27), (1993, 7, 1, 28), (1994, 7, 1, 29),
+    (1996, 1, 1, 30), (1997, 7, 1, 31), (1999, 1, 1, 32), (2006, 1, 1, 33),
+    (2009, 1, 1, 34), (2012, 7, 1, 35), (2015, 7, 1, 36), (2017, 1, 1, 37),
+]
+
+
+def _days_from_civil(y: int, m: int, d: int) -> int:
+    """Days since 1970-01-01 (proleptic Gregorian), Howard Hinnant's algorithm."""
+    y -= m <= 2
+    era = (y if y >= 0 else y - 399) // 400
+    yoe = y - era * 400
+    doy = (153 * (m + (-3 if m > 2 else 9)) + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+# Seconds from Unix epoch (1970-01-01T00:00) to J2000 (2000-01-01T12:00), same scale.
+_J2000_MINUS_UNIX_S = _days_from_civil(2000, 1, 1) * SECONDS_PER_DAY + 43_200.0
+
+# Leap table in "seconds past J2000 UTC-as-if-TAI" for lookup.
+_LEAP_S = [
+    (_days_from_civil(y, m, d) * SECONDS_PER_DAY - _J2000_MINUS_UNIX_S, float(dt))
+    for (y, m, d, dt) in _LEAP_TABLE
+]
+
+
+def tai_minus_utc(utc_s_past_j2000: float) -> float:
+    """TAI-UTC offset (leap seconds) at a UTC instant given in s past J2000."""
+    off = 0.0
+    for thresh, dt in _LEAP_S:
+        if utc_s_past_j2000 >= thresh:
+            off = dt
+        else:
+            break
+    return off
+
+
+def tdb_minus_tt(tt_s_past_j2000):
+    """TDB - TT in seconds, standard USNO sinusoidal approximation (~us
+    accurate). Works on floats and torch tensors."""
+    days = tt_s_past_j2000 / SECONDS_PER_DAY
+    g = 6.239996 + 0.0172019699 * days  # mean anomaly of Earth orbit, rad
+    if isinstance(tt_s_past_j2000, (float, int)):
+        return 0.001657 * math.sin(g + 0.01671 * math.sin(g))
+    return 0.001657 * torch.sin(g + 0.01671 * torch.sin(g))
+
+
+@dataclass(frozen=True, order=True)
+class Duration:
+    """A span of time, stored as float64 seconds."""
+
+    seconds: float
+
+    def to_seconds(self) -> float:
+        return self.seconds
+
+
+@dataclass(frozen=True, order=True)
+class Epoch:
+    """An instant, stored as two-part TAI seconds past J2000 (int + fraction)."""
+
+    tai_int: int
+    tai_frac: float  # in [0, 1)
+
+    @staticmethod
+    def _make(total_s: float) -> "Epoch":
+        i = math.floor(total_s)
+        return Epoch(int(i), total_s - i)
+
+    @staticmethod
+    def _make2(i: int, f: float) -> "Epoch":
+        di = math.floor(f)
+        return Epoch(i + int(di), f - di)
+
+    @classmethod
+    def from_tai_seconds_j2000(cls, s: float) -> "Epoch":
+        return cls._make(s)
+
+    @classmethod
+    def from_tt_seconds_j2000(cls, s: float) -> "Epoch":
+        return cls._make(s - TT_MINUS_TAI)
+
+    @classmethod
+    def from_tdb_seconds_j2000(cls, s: float) -> "Epoch":
+        # invert TDB->TT by one fixed-point iteration (offset varies slowly)
+        tt = s - tdb_minus_tt(s)
+        tt = s - tdb_minus_tt(tt)
+        return cls.from_tt_seconds_j2000(tt)
+
+    @classmethod
+    def from_utc_seconds_j2000(cls, s: float) -> "Epoch":
+        return cls._make(s + tai_minus_utc(s))
+
+    @classmethod
+    def from_gregorian(cls, y, mo, d, h=0, mi=0, s=0.0, scale="UTC") -> "Epoch":
+        days = _days_from_civil(y, mo, d)
+        sec = days * SECONDS_PER_DAY - _J2000_MINUS_UNIX_S + h * 3600 + mi * 60 + s
+        scale = scale.upper()
+        if scale == "UTC":
+            return cls.from_utc_seconds_j2000(sec)
+        if scale == "TAI":
+            return cls._make(sec)
+        if scale == "TT":
+            return cls.from_tt_seconds_j2000(sec)
+        if scale == "TDB":
+            return cls.from_tdb_seconds_j2000(sec)
+        if scale == "GPS":
+            return cls._make(sec - GPS_MINUS_TAI)
+        raise ConfigError(f"unknown time scale {scale}")
+
+    @classmethod
+    def from_gregorian_utc(cls, y, mo, d, h=0, mi=0, s=0.0) -> "Epoch":
+        return cls.from_gregorian(y, mo, d, h, mi, s, "UTC")
+
+    def to_tai_seconds(self) -> float:
+        """Seconds past J2000 in TAI (collapsed to a single f64)."""
+        return self.tai_int + self.tai_frac
+
+    def to_tt_seconds(self) -> float:
+        return self.to_tai_seconds() + TT_MINUS_TAI
+
+    def to_tdb_seconds(self) -> float:
+        tt = self.to_tt_seconds()
+        return tt + tdb_minus_tt(tt)
+
+    def __add__(self, other):
+        if isinstance(other, Duration):
+            return Epoch._make2(self.tai_int, self.tai_frac + other.seconds)
+        if isinstance(other, (int, float)):  # seconds
+            return Epoch._make2(self.tai_int, self.tai_frac + other)
+        return NotImplemented
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        if isinstance(other, Epoch):
+            return Duration((self.tai_int - other.tai_int) + (self.tai_frac - other.tai_frac))
+        if isinstance(other, Duration):
+            return Epoch._make2(self.tai_int, self.tai_frac - other.seconds)
+        if isinstance(other, (int, float)):
+            return Epoch._make2(self.tai_int, self.tai_frac - other)
+        return NotImplemented

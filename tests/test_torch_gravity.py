@@ -1,0 +1,221 @@
+"""Gravity parity: the PyTorch port's Pines recursion against nyx_tpu.
+
+Both packages get the same numpy inputs (positions from a numpy seed, JGM3
+from the repo's data/ directory) and the same recursion rows: the port's
+Harmonics is built from the reference object's `_tables` through
+`nyx_tpu_torch.interop`. All gravity tests live in this one file because
+every test worker pays both the JAX and the torch import.
+
+The test marked `cuda` needs only the port. A machine with a card but no
+JAX runs it alone with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_gravity.py
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax.numpy as jnp
+
+    from nyx_tpu import Frames as RFrames
+    from nyx_tpu.dynamics import Harmonics as RHarmonics
+    from nyx_tpu.dynamics import gravity_pallas
+    from nyx_tpu.io.gravity import GravityFieldData as RGravityFieldData
+except ModuleNotFoundError:  # no JAX: only the port-only `cuda` test can run
+    jnp = None
+
+from nyx_tpu_torch import Frames
+from nyx_tpu_torch.dynamics import Harmonics
+from nyx_tpu_torch.dynamics import gravity_pines
+from nyx_tpu_torch.io.gravity import GravityFieldData
+from nyx_tpu_torch.interop import harmonics_from_tables
+
+JGM3 = Path(__file__).parents[1] / "data/JGM3.cof.gz"
+
+# The reference's own f32 bound for two f32 evaluations of the recursion
+# that round differently (tests/test_dynamics.py:399,415): per-lane norm of
+# the difference over the norm of the acceleration.
+F32_REL = 2e-5
+# Two f64 evaluations of the same rows that differ only in summation order
+# and in C*sqrt2 being pre-multiplied: a few hundred ulps at most.
+F64_REL = 1e-12
+
+FIELDS = {
+    "21x21-split": (21, 21, "split"),
+    "12x6": (12, 6, "f32"),
+}
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)).max())
+
+
+def _positions(n, seed, r_min=6700.0, r_max=42000.0):
+    rng = np.random.default_rng(seed)
+    r = rng.normal(size=(n, 3))
+    return r / np.linalg.norm(r, axis=1, keepdims=True) * rng.uniform(r_min, r_max, (n, 1))
+
+
+def _pair(name):
+    """(reference Harmonics, port Harmonics built from its tables)."""
+    deg, order, precision = FIELDS[name]
+    stor = RGravityFieldData.from_cof(JGM3, deg, order, True, RFrames.IAU_EARTH)
+    ref = RHarmonics.from_stor(stor, precision=precision)
+    port = harmonics_from_tables(
+        *ref._tables, ref.mu_km3_s2, ref.radius_km, precision, ref.j2, ref.j3
+    )
+    return ref, port
+
+
+@pytest.mark.parametrize("name", sorted(FIELDS))
+@pytest.mark.parametrize("q_hi", [0, 3])
+def test_pack_tables_bitwise(name, q_hi):
+    """(a) The port's pack_tables is the Pallas kernel's table, bit for bit,
+    and the port's own from_stor builds the reference's recursion rows."""
+    deg, order, precision = FIELDS[name]
+    ref, _ = _pair(name)
+    xs, _, N, M = ref._tables
+    tab_ref, _gate = gravity_pallas.pack_tables(xs, N, M + 2, 0, q_hi)
+    tab = gravity_pines.pack_tables(xs, N, M + 2, q_hi)
+    assert tab.dtype == tab_ref.dtype == np.float32
+    np.testing.assert_array_equal(tab, tab_ref)
+
+    own = Harmonics.from_stor(
+        GravityFieldData.from_cof(JGM3, deg, order, True, Frames.IAU_EARTH), precision
+    )
+    for key, rows in xs.items():
+        np.testing.assert_array_equal(own._tables[0][key], rows, err_msg=key)
+    assert (own.j2, own.j3) == (ref.j2, ref.j3)
+
+
+@pytest.mark.parametrize(
+    "name,q_lo", [("21x21-split", 0), ("21x21-split", 3), ("12x6", 0)]
+)
+def test_twin_f32_matches_unrolled(name, q_lo):
+    """(b) The f32 twin against the reference's f32 XLA recursion
+    (`_accel_unrolled`), within the f32 bound."""
+    ref, port = _pair(name)
+    r = _positions(64, 3)
+    a_ref = np.asarray(ref._accel_unrolled(jnp.asarray(r, jnp.float32), q_lo))
+    a = port._accel_any(torch.tensor(r, dtype=torch.float32), q_lo)
+    assert a.dtype == torch.float32
+    assert _rel(a.numpy(), a_ref) < F32_REL
+
+
+@pytest.mark.parametrize("q_lo", [0, 3])
+def test_twin_matches_pallas_interpret(q_lo):
+    """(c) The twin against the Pallas kernel itself (interpret mode) at a
+    ragged B = 37, from the same packed table."""
+    ref, port = _pair("21x21-split")
+    xs, diag, N, M = ref._tables
+    tab, gate = gravity_pallas.pack_tables(xs, N, M + 2, q_lo, 0)
+    r = _positions(37, 5)
+    kw = dict(W=M + 2, mu=ref.mu_km3_s2, radius=ref.radius_km, diag1=float(diag[1]))
+    a_pal = np.asarray(
+        gravity_pallas.pines_accel_pallas(
+            jnp.asarray(r, jnp.float32), jnp.asarray(tab), gate, interpret=True, **kw
+        )
+    )
+    a = gravity_pines.pines_accel_torch(
+        torch.tensor(r, dtype=torch.float32), torch.from_numpy(tab), q_lo, **kw
+    )
+    assert _rel(a.numpy(), a_pal) < F32_REL
+
+
+def test_mixed_precision_matches_reference():
+    """precision="mixed" at f64: degrees <= 3 through the f64 twin, the rest
+    through the f32 twin, against the reference's mixed evaluation. The f32
+    part is ~1e-3 of the field, so the f32 bound on it is ~2e-8 on the sum."""
+    stor = RGravityFieldData.from_cof(JGM3, 21, 21, True, RFrames.IAU_EARTH)
+    ref = RHarmonics.from_stor(stor, precision="mixed")
+    port = harmonics_from_tables(
+        *ref._tables, ref.mu_km3_s2, ref.radius_km, "mixed", ref.j2, ref.j3
+    )
+    r = _positions(64, 19, 6700.0, 7500.0)
+    a_ref = np.asarray(ref.accel_body_fixed(jnp.asarray(r)))
+    a = port.accel_body_fixed(torch.tensor(r, dtype=torch.float64))
+    assert a.dtype == torch.float64
+    assert _rel(a.numpy(), a_ref) < F32_REL * 1e-3
+
+
+@pytest.mark.parametrize("precision", ["split", "f64"])
+def test_twin_f64_matches_unrolled(precision):
+    """(d) At f64 the twin (from f64 packed rows) is the reference's f64
+    recursion to summation-order round-off."""
+    stor = RGravityFieldData.from_cof(JGM3, 21, 21, True, RFrames.IAU_EARTH)
+    ref = RHarmonics.from_stor(stor, precision=precision)
+    port = harmonics_from_tables(
+        *ref._tables, ref.mu_km3_s2, ref.radius_km, precision, ref.j2, ref.j3
+    )
+    r = _positions(64, 7)
+    a_ref = np.asarray(ref._accel_unrolled(jnp.asarray(r)))
+    a = port.accel_body_fixed(torch.tensor(r, dtype=torch.float64))
+    assert a.dtype == torch.float64
+    assert _rel(a.numpy(), a_ref) < F64_REL
+
+
+def test_split_accel_with_rotation_matches_reference():
+    """(e) Harmonics.accel at split precision, through the f64 pole / f32
+    rows of iau_earth_dcm32_pole: the f32 part of the field agrees within
+    the f32 bound, and J2+J3 (f64) agree to f64 round-off."""
+    ref, port = _pair("21x21-split")
+    rng = np.random.default_rng(11)
+    B = 48
+    r = _positions(B, 13, 6700.0, 7500.0)
+    t = 6.68e8 + rng.uniform(0.0, 86_400.0, B)
+    a_ref = np.asarray(ref.accel(None, jnp.asarray(t), jnp.asarray(r), None))
+    a = port.accel(None, torch.tensor(t), torch.tensor(r), None).numpy()
+
+    from nyx_tpu.cosmic.rotations import iau_earth_dcm32_pole as r_dcm32_pole
+    from nyx_tpu.dynamics.gravity import _j2j3_accel as r_j2j3
+    from nyx_tpu_torch.cosmic.rotations import iau_earth_dcm32_pole
+    from nyx_tpu_torch.dynamics.gravity import _j2j3_accel
+
+    _, pole_ref = r_dcm32_pole(jnp.asarray(t))
+    a_low_ref = np.asarray(
+        r_j2j3(ref.mu_km3_s2, ref.radius_km, ref.j2, ref.j3, jnp.asarray(r), pole_ref)
+    )
+    _, pole = iau_earth_dcm32_pole(torch.tensor(t))
+    a_low = _j2j3_accel(port.mu_km3_s2, port.radius_km, port.j2, port.j3, torch.tensor(r), pole)
+    assert _rel(a_low.numpy(), a_low_ref) < F64_REL
+    # the f32 remainder of the field is the quantity held to the f32 bound
+    assert _rel(a - a_low_ref, a_ref - a_low_ref) < F32_REL
+
+
+@pytest.mark.cuda
+def test_kernel_matches_twin_on_card():
+    """(f) The CUDA kernel against the twin on the card. Both round every
+    f32 operation alike and sum the orders in one order, so they agree bit
+    for bit (the f32 bound would be 2e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    for name, q_lo, B in (("21x21-split", 0, 10_000), ("21x21-split", 3, 37), ("12x6", 0, 37)):
+        deg, order, precision = FIELDS[name]
+        port = Harmonics.from_stor(
+            GravityFieldData.from_cof(JGM3, deg, order, True, Frames.IAU_EARTH), precision
+        )
+        tab = port.packed_table(0, torch.float32, "cuda")
+        r = torch.tensor(_positions(B, 17), dtype=torch.float32, device="cuda")
+        kw = port.pines_args()
+        a_k = gravity_pines.pines_accel_cuda(r, tab, q_lo, **kw)
+        a_t = gravity_pines.pines_accel_torch(r, tab, q_lo, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(a_k, a_t), (name, q_lo, B)
+
+
+def test_kernel_wrapper_rejects_what_it_cannot_run():
+    """The kernel wrapper refuses a CPU tensor instead of falling back, and
+    the dispatcher takes the twin for a CPU tensor without launching."""
+    _, port = _pair("12x6")
+    tab = port.packed_table(0, torch.float32, "cpu")
+    kw = port.pines_args()
+    with pytest.raises(ValueError, match="CUDA"):
+        gravity_pines.pines_accel_cuda(torch.zeros(4, 3), tab, 0, **kw)
+    launches = gravity_pines.pines_accel_cuda.launches
+    a = gravity_pines.pines_accel(torch.tensor(_positions(4, 1), dtype=torch.float32), tab, 0, **kw)
+    assert a.shape == (4, 3) and gravity_pines.pines_accel_cuda.launches == launches
