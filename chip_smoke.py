@@ -8,15 +8,26 @@ through the same entry points a user calls. Phases, in order; any failure
 raises and exits non-zero:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the Pines kernel (csrc/pines.cu) from the checkout;
+2. build the Pines kernel (csrc/pines.cu) from the checkout, and, where
+   `--parent DIR` names a checkout of the parent commit, that tree's own
+   kernel behind its own wrapper;
 3. hold the kernel against its torch twin on the card (21x21 split at
-   q_lo 0 and 3, a 12x6 rectangular field; B = 10,000 and a ragged 37),
-   and time both at B = 10,000 with CUDA events;
+   q_lo 0 and 3, a 12x6 rectangular field, 70x70 JGM3 split at q_lo 0 and
+   3, and JGM3 extended with Kaula-rule coefficients to 120x120 and
+   160x160, whose tables stream; each at B = 10,000 and a ragged 37), and
+   time the kernel on the card at B = 10,000 beside its bound, and the twin
+   and the parent's kernel at 21x21;
 4. run the main path, after a 120 s warm-up arc, and count kernel launches;
-5. rerun 64 of its lanes with the gravity twin forced and compare finals.
+5. rerun 64 of its lanes with the gravity twin forced and compare finals;
+6. the same ensemble with 70x70 JGM3 split gravity over one hour, through
+   the kernel, and its 64-lane twin rerun;
+7. print the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
-line `{"ok": true, "device": {...}}`. Run from the repository root:
+line `{"ok": true, "device": {...}}`. In the summary `ms` is the card's
+time a call, from a CUDA graph of 20 calls replayed back to back
+(`ms_timing`); `eager_ms` is the time a call made back to back from the
+host, as the main path makes them. Run from the repository root:
 
     python3 chip_smoke.py
 """
@@ -24,8 +35,12 @@ line `{"ok": true, "device": {...}}`. Run from the repository root:
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import importlib
+import importlib.util
 import json
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -40,6 +55,11 @@ B_TWIN = 64
 KERNEL_REL_TOL = 2e-5
 # Split vs full-f64 envelope over one day (tests/test_dynamics.py:304), km.
 TWIN_FINAL_TOL_KM = 1e-3
+# The card's peaks (NVIDIA H100 SXM data sheet): 67 TFLOP/s of f32 counts a
+# fused multiply-add as two operations; the kernel is built without
+# contraction, so each of its operations is one instruction at half that.
+F32_OPS_PER_S = 67e12 / 2
+HBM_BYTES_PER_S = 3.35e12
 
 
 def _log(msg: str) -> None:
@@ -60,71 +80,232 @@ def _leo_body_fixed(n: int, seed: int) -> np.ndarray:
     return r / np.linalg.norm(r, axis=1, keepdims=True) * rng.uniform(6_700.0, 7_500.0, (n, 1))
 
 
-def _time_ms(fn, reps: int = 200) -> float:
-    for _ in range(10):
-        fn()
+def _time_ms(fn, calls: int = 20, window_ms: float = 200.0) -> float:
+    """The card's mean ms per call: `calls` calls captured in one CUDA graph,
+    replayed back to back over a window of about `window_ms`, timed with
+    CUDA events. Replaying the graph takes the host's launch cost out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    reps = 2
+    for _ in range(2):  # warm up, then size the window from the warm-up's rate
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        reps = max(2, min(10_000, int(window_ms * reps / start.elapsed_time(end))))
     start.record()
     for _ in range(reps):
-        fn()
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / (reps * calls)
 
 
-def phase_kernel_vs_twin(gp, Harmonics, GravityFieldData, Frames):
-    """Kernel vs twin on the card; returns (max_rel, max_abs, kernel_ms, twin_ms)."""
-    jgm3 = HERE / "data" / "JGM3.cof.gz"
-    cases = [
-        (21, 21, "split", 0),
-        (21, 21, "split", 3),
-        (12, 6, "f32", 0),
-    ]
+def _eager_ms(fn, window_ms: float = 200.0) -> float:
+    """Mean ms per call of back-to-back calls from the host, as the main
+    path makes them: the larger of the card's time and the host's."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0, n = time.perf_counter(), 0
+    while time.perf_counter() - t0 < window_ms / 1e3:
+        fn()
+        n += 1
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def pines_ops_per_lane(n_steps: int, W: int, q_lo: int) -> int:
+    """f32 operations one lane needs, counted from the recursion: at degree
+    step k only orders m <= k+2 are nonzero; each takes 7 operations for its
+    Legendre row and, where the degree accumulates, 25 for d, e, f and the
+    four sums; then the powers (6 a column), the order sums (4 a column),
+    the prelude and the final combination (~20)."""
+    cols = [min(k + 3, W) for k in range(n_steps)]
+    accumulated = sum(c for k, c in enumerate(cols) if k + 1 > q_lo)
+    return 7 * sum(cols) + 25 * accumulated + 10 * (W - 1) + 20
+
+
+def pines_bound_ms(B: int, n_steps: int, W: int, W_pad: int, q_lo: int) -> tuple[float, str]:
+    """The least time the card could take: the larger of the operations over
+    the f32 rate and the bytes (positions in, accelerations out, the table
+    once) over the memory rate."""
+    ops_s = B * pines_ops_per_lane(n_steps, W, q_lo) / F32_OPS_PER_S
+    bytes_s = (24 * B + 4 * n_steps * 8 * W_pad) / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+def extend_kaula(stor, degree: int, seed: int):
+    """`stor` (a GravityFieldData) extended to a `degree` x `degree` field:
+    its own coefficients up to its degree and order, and above its degree
+    random fully normalized C/S of Kaula-rule magnitude (standard deviation
+    1e-5 / n^2) from `np.random.default_rng(seed)`. A synthetic field with a
+    realistic spectrum for the kernel's high-degree paths; it models no
+    body."""
+    rng = np.random.default_rng(seed)
+    c_nm = np.zeros((degree + 1, degree + 1))
+    s_nm = np.zeros((degree + 1, degree + 1))
+    n0, m0 = stor.c_nm.shape
+    c_nm[:n0, :m0] = stor.c_nm
+    s_nm[:n0, :m0] = stor.s_nm
+    for n in range(n0, degree + 1):
+        sigma = 1e-5 / n**2
+        c_nm[n, : n + 1] = rng.normal(0.0, sigma, n + 1)
+        s_nm[n, 1 : n + 1] = rng.normal(0.0, sigma, n)
+    return dataclasses.replace(stor, c_nm=c_nm, s_nm=s_nm)
+
+
+def _parent_gravity(root: Path):
+    """The `gravity_pines` module of the port in the checkout at `root`,
+    imported under another package name beside this one: its own wrapper,
+    its own kernel source and its own build directory."""
+    name = "parent_nyx_tpu_torch"
+    pkg = root / "nyx_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(f"{name}.dynamics.gravity_pines")
+
+
+def phase_kernel_vs_twin(gp, fields, parent):
+    """Kernel vs twin on the card in every case, then the kernel's times at
+    B = 10,000 beside their bounds. Returns the summary's numbers."""
     max_rel = max_abs = 0.0
-    timed = None
-    for deg, order, precision, q_lo in cases:
-        h = Harmonics.from_stor(
-            GravityFieldData.from_cof(jgm3, deg, order, True, Frames.IAU_EARTH), precision
-        )
+    cases = [("21x21", 0), ("21x21", 3), ("12x6", 0), ("70x70", 0), ("70x70", 3),
+             ("120x120", 3), ("160x160", 3)]
+    for name, q_lo in cases:
+        h = fields[name]
         tab = h.packed_table(0, torch.float32, "cuda")
         kw = h.pines_args()
+        plan = gp.pines_launch_plan(tab.shape[0], tab.shape[2])
         for B in (B_MAIN, 37):
             r = torch.tensor(_leo_body_fixed(B, 1000 + B), dtype=torch.float32, device="cuda")
             a_k = gp.pines_accel_cuda(r, tab, q_lo, **kw)
             a_t = gp.pines_accel_torch(r, tab, q_lo, **kw)
             torch.cuda.synchronize()
             if not torch.isfinite(a_k).all():
-                raise RuntimeError(f"kernel returned non-finite values ({deg}x{order}, B={B})")
+                raise RuntimeError(f"kernel returned non-finite values ({name}, B={B})")
             rel = ((a_k - a_t).norm(dim=1) / a_t.norm(dim=1)).max().item()
             abs_err = (a_k - a_t).abs().max().item()
             n_diff = int((a_k != a_t).sum())
-            _log(f"kernel vs twin {deg}x{order} {precision} q_lo={q_lo} B={B}: "
-                 f"max rel {rel:.3e}, max abs {abs_err:.3e} km/s^2, "
-                 f"{n_diff} of {a_k.numel()} values differ in any bit")
+            _log(f"kernel vs twin {name} {h.precision} q_lo={q_lo} B={B} "
+                 f"({'whole table' if plan.whole else f'streamed, {plan.chunk_steps} steps a buffer'}, "
+                 f"{plan.smem_bytes} B shared): max rel {rel:.3e}, "
+                 f"max abs {abs_err:.3e} km/s^2, {n_diff} of {a_k.numel()} values differ in any bit")
             if not rel < KERNEL_REL_TOL:
                 raise RuntimeError(f"kernel disagrees with twin: rel {rel} >= {KERNEL_REL_TOL}")
             max_rel, max_abs = max(max_rel, rel), max(max_abs, abs_err)
-            if (deg, precision, q_lo, B) == (21, "split", 0, B_MAIN):
-                timed = (r, tab, q_lo, kw)
-    r, tab, q_lo, kw = timed
-    kernel_ms = _time_ms(lambda: gp.pines_accel_cuda(r, tab, q_lo, **kw))
-    twin_ms = _time_ms(lambda: gp.pines_accel_torch(r, tab, q_lo, **kw))
-    _log(f"21x21 split at B={B_MAIN}: kernel {kernel_ms:.4f} ms, twin {twin_ms:.4f} ms per call")
-    return max_rel, max_abs, kernel_ms, twin_ms
+
+    r = torch.tensor(_leo_body_fixed(B_MAIN, 1000 + B_MAIN), dtype=torch.float32, device="cuda")
+    out = {}
+    for name in ("21x21", "70x70", "120x120"):
+        h = fields[name]
+        tab = h.packed_table(0, torch.float32, "cuda")
+        kw = h.pines_args()
+        ms = _time_ms(lambda: gp.pines_accel_cuda(r, tab, 0, **kw))
+        bound, bound_by = pines_bound_ms(B_MAIN, tab.shape[0], kw["W"], tab.shape[2], 0)
+        _log(f"{name} split q_lo=0 at B={B_MAIN}: kernel {ms:.4f} ms per call, bound {bound:.4f} ms "
+             f"({bound_by}; {pines_ops_per_lane(tab.shape[0], kw['W'], 0)} operations a lane), "
+             f"{100 * bound / ms:.1f} % of bound")
+        out[name] = (ms, bound, bound_by)
+    h = fields["21x21"]
+    tab = h.packed_table(0, torch.float32, "cuda")
+    kw = h.pines_args()
+    eager_ms = _eager_ms(lambda: gp.pines_accel_cuda(r, tab, 0, **kw))
+    twin_ms = _time_ms(lambda: gp.pines_accel_torch(r, tab, 0, **kw), calls=2)
+    twin_eager_ms = _eager_ms(lambda: gp.pines_accel_torch(r, tab, 0, **kw))
+    _log(f"21x21 split q_lo=0 at B={B_MAIN}: kernel {eager_ms:.4f} ms per call back to back from "
+         f"the host; twin {twin_ms:.4f} ms on the card, {twin_eager_ms:.4f} ms from the host")
+    parent_ms = parent_eager_ms = None
+    if parent is not None:
+        a_p = parent.pines_accel_cuda(r, tab, 0, **kw)
+        n_diff = int((a_p != gp.pines_accel_torch(r, tab, 0, **kw)).sum())
+        calls = {"parent": lambda: parent.pines_accel_cuda(r, tab, 0, **kw),
+                 "kernel": lambda: gp.pines_accel_cuda(r, tab, 0, **kw)}
+        turns = ("parent", "kernel", "kernel", "parent")
+        parent_means = []
+        for label, timer in (("on the card", _time_ms), ("from the host", _eager_ms)):
+            times = [timer(calls[who]) for who in turns]
+            _log(f"21x21 split q_lo=0 at B={B_MAIN}, ms a call {label}, in turns: "
+                 + ", ".join(f"{who} {ms:.4f}" for who, ms in zip(turns, times))
+                 + f" (parent vs twin: {n_diff} values differ in any bit)")
+            parent_means.append((times[0] + times[3]) / 2)
+        parent_ms, parent_eager_ms = parent_means
+    return dict(max_rel=max_rel, max_abs=max_abs, times=out, twin_ms=twin_ms, parent_ms=parent_ms,
+                eager_ms=eager_ms, twin_eager_ms=twin_eager_ms, parent_eager_ms=parent_eager_ms)
+
+
+def run_and_rerun(mc_seed, mvn, propagator, alm, start, seconds, gp, label):
+    """A B_MAIN-lane ensemble through the kernel, with its launches counted
+    from 0, then B_TWIN of its lanes through the gravity twin. Returns
+    the launches."""
+    from nyx_tpu_torch.mc import MonteCarlo
+
+    end = start + seconds
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = MonteCarlo(mvn, seed=mc_seed).run_until_epoch(propagator("auto"), alm, end, B_MAIN, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = gp.pines_accel_cuda.launches
+    twin_cuda_calls = gp.pines_accel_torch.cuda_calls
+    _log(f"{label}: B={B_MAIN}, {seconds} s arc, wall {wall:.3f} s, "
+         f"{res.n_ok / wall:.2f} traj/s, mean accepted steps {float(np.mean(res.n_accepted)):.2f}, "
+         f"mean rejected {float(np.mean(res.n_rejected)):.2f}, "
+         f"n_ok/n_runs {res.n_ok}/{res.n_runs}, kernel launches {launches}, "
+         f"twin CUDA calls {twin_cuda_calls}")
+    if res.n_ok != res.n_runs:
+        raise RuntimeError(f"{label}: {res.n_ok}/{res.n_runs} lanes ok")
+    if res.y_final.shape != (B_MAIN, 9) or not np.isfinite(res.y_final).all():
+        raise RuntimeError(f"{label}: final states are not finite [B, 9]")
+    if launches <= 0 or twin_cuda_calls != 0:
+        raise RuntimeError(
+            f"{label} did not run through the kernel: {launches} launches, "
+            f"{twin_cuda_calls} twin calls on CUDA"
+        )
+
+    twin = MonteCarlo(mvn, seed=mc_seed).run_until_epoch(
+        propagator("torch"), alm, end, B_TWIN, device="cuda", _y0=res.y_initial[:B_TWIN]
+    )
+    if twin.n_ok != B_TWIN:
+        raise RuntimeError(f"{label} twin rerun: {twin.n_ok}/{B_TWIN} lanes ok")
+    d_km = np.linalg.norm(twin.y_final[:, :3] - res.y_final[:B_TWIN, :3], axis=1).max()
+    _log(f"{label} twin rerun of {B_TWIN} lanes: max final position difference {d_km:.3e} km, "
+         f"mean accepted steps {float(np.mean(twin.n_accepted)):.2f} vs "
+         f"{float(np.mean(res.n_accepted[:B_TWIN])):.2f}")
+    if not d_km < TWIN_FINAL_TOL_KM:
+        raise RuntimeError(f"{label}: kernel and twin runs differ by {d_km} km >= {TWIN_FINAL_TOL_KM}")
+    return launches
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--duration-s", type=float, default=86_400.0,
                     help="arc of the main-path run (default: one day)")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the parent commit (say, unpacked by git archive) whose "
+                         "own kernel and wrapper are built and timed beside this one at 21x21")
     args = ap.parse_args()
 
     # phase 1: the card
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
     _log(_card_line())
-    device = "cuda"
     kind = torch.cuda.get_device_name(0)
 
     from nyx_tpu_torch import Epoch, Frames, Orbit, Spacecraft, _cuda
@@ -133,101 +314,96 @@ def main() -> None:
     )
     from nyx_tpu_torch.dynamics import gravity_pines as gp
     from nyx_tpu_torch.ephem import Almanac
-    from nyx_tpu_torch.io import GravityFieldData
+    from nyx_tpu_torch.io.gravity import GravityFieldData
     from nyx_tpu_torch.mc import MonteCarlo, MvnSpacecraft, StateDispersion
     from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
 
     # phase 2: build
-    built = _cuda.load("pines")
-    _log(f"built {built.path.name} in {built.seconds:.2f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            _log(f"  ptxas: {line.strip()}")
+    parent, builds = None, [("pines", _cuda)]
+    if args.parent is not None:
+        parent = _parent_gravity(args.parent.resolve())
+        builds.append(("the parent's pines", parent._cuda))
+    for label, cuda in builds:
+        built = cuda.load("pines")
+        _log(f"built {label}: {built.path} in {built.seconds:.2f} s")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                _log(f"  ptxas: {line.strip()}")
 
     # phase 3: kernel vs twin
-    max_rel, max_abs, kernel_ms, twin_ms = phase_kernel_vs_twin(
-        gp, Harmonics, GravityFieldData, Frames
-    )
+    jgm3 = HERE / "data" / "JGM3.cof.gz"
+    stor70 = GravityFieldData.from_cof(jgm3, 70, 70, True, Frames.IAU_EARTH)
+    fields = {
+        "21x21": Harmonics.from_stor(
+            GravityFieldData.from_cof(jgm3, 21, 21, True, Frames.IAU_EARTH), "split"),
+        "12x6": Harmonics.from_stor(
+            GravityFieldData.from_cof(jgm3, 12, 6, True, Frames.IAU_EARTH), "f32"),
+        "70x70": Harmonics.from_stor(stor70, "split"),
+        "120x120": Harmonics.from_stor(extend_kaula(stor70, 120, 7), "split"),
+        "160x160": Harmonics.from_stor(extend_kaula(stor70, 160, 8), "split"),
+    }
+    k3 = phase_kernel_vs_twin(gp, fields, parent)
 
-    # phase 4: the main path, Config 2
+    # phases 4 and 5: the main path, Config 2, and its twin rerun
     epoch = Epoch.from_gregorian_utc(2021, 3, 4)
     orbit = Orbit.keplerian(7136.6, 2e-4, 51.6, 30.0, 65.0, 80.0, epoch, Frames.EME2000)
     sc = Spacecraft.new(orbit, 100.0, 0.0, 2.0, 2.0, 1.8, 2.2)
-    stor = GravityFieldData.from_cof(HERE / "data" / "JGM3.cof.gz", 21, 21, True, Frames.IAU_EARTH)
 
-    def propagator(backend):
-        dyn = SpacecraftDynamics(
-            OrbitalDynamics.from_model(
-                Harmonics.from_stor(stor, precision="split", backend=backend), Frames.EME2000
-            ),
-            (SolarPressure.default(), Drag.earth_exp()),
-        )
-        return Propagator.rk89(dyn, IntegratorOptions.with_adaptive_step(0.1, 2700.0, 1e-9))
+    def propagator_for(stor):
+        def propagator(backend):
+            dyn = SpacecraftDynamics(
+                OrbitalDynamics.from_model(
+                    Harmonics.from_stor(stor, precision="split", backend=backend), Frames.EME2000
+                ),
+                (SolarPressure.default(), Drag.earth_exp()),
+            )
+            return Propagator.rk89(dyn, IntegratorOptions.with_adaptive_step(0.1, 2700.0, 1e-9))
+        return propagator
 
-    prop = propagator("auto")
     mvn = MvnSpacecraft(
         sc, [StateDispersion("sma", 0.5), StateDispersion("inc", 0.01), StateDispersion("raan", 0.01)]
     )
-    mc = MonteCarlo(mvn, seed=42)
     alm = Almanac()
-    end = epoch + args.duration_s
     if args.duration_s != 86_400.0:
         _log(f"NOTE: main-path arc shortened to {args.duration_s} s (not the one-day Config 2)")
 
-    warm = mc.run_until_epoch(prop, alm, epoch + 120.0, B_MAIN, device=device)
+    prop21 = propagator_for(GravityFieldData.from_cof(jgm3, 21, 21, True, Frames.IAU_EARTH))
+    warm = MonteCarlo(mvn, seed=42).run_until_epoch(prop21("auto"), alm, epoch + 120.0, B_MAIN,
+                                                    device="cuda")
     if warm.n_ok != warm.n_runs:
         raise RuntimeError(f"warm-up: {warm.n_ok}/{warm.n_runs} lanes ok")
+    launches = run_and_rerun(42, mvn, prop21, alm, epoch, args.duration_s, gp, "main path")
 
-    gp.pines_accel_cuda.launches = 0
-    gp.pines_accel_torch.cuda_calls = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = mc.run_until_epoch(prop, alm, end, B_MAIN, device=device)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = gp.pines_accel_cuda.launches
-    twin_cuda_calls = gp.pines_accel_torch.cuda_calls
+    # phase 6: 70x70 JGM3 split over one hour through the kernel, and its twin rerun
+    launches70 = run_and_rerun(42, mvn, propagator_for(stor70), alm, epoch, 3600.0, gp, "70x70 path")
 
-    mean_steps = float(np.mean(res.n_accepted))
-    _log(f"main path: B={B_MAIN}, {args.duration_s} s arc, wall {wall:.3f} s, "
-         f"{res.n_ok / wall:.2f} traj/s, mean accepted steps {mean_steps:.2f}, "
-         f"mean rejected {float(np.mean(res.n_rejected)):.2f}, "
-         f"n_ok/n_runs {res.n_ok}/{res.n_runs}, kernel launches {launches}, "
-         f"twin CUDA calls {twin_cuda_calls}")
-    if res.n_ok != res.n_runs:
-        raise RuntimeError(f"{res.n_ok}/{res.n_runs} lanes ok")
-    if res.y_final.shape != (B_MAIN, 9) or not np.isfinite(res.y_final).all():
-        raise RuntimeError("final states are not finite [B, 9]")
-    if launches <= 0 or twin_cuda_calls != 0:
-        raise RuntimeError(
-            f"main path did not run through the kernel: {launches} launches, "
-            f"{twin_cuda_calls} twin calls on CUDA"
-        )
-
-    # phase 5: the same 64 lanes with the gravity twin forced
-    twin = MonteCarlo(mvn, seed=42).run_until_epoch(
-        propagator("torch"), alm, end, B_TWIN, device=device, _y0=res.y_initial[:B_TWIN]
-    )
-    if twin.n_ok != B_TWIN:
-        raise RuntimeError(f"twin rerun: {twin.n_ok}/{B_TWIN} lanes ok")
-    d_km = np.linalg.norm(twin.y_final[:, :3] - res.y_final[:B_TWIN, :3], axis=1).max()
-    _log(f"twin rerun of {B_TWIN} lanes: max final position difference {d_km:.3e} km, "
-         f"mean accepted steps {float(np.mean(twin.n_accepted)):.2f} vs "
-         f"{float(np.mean(res.n_accepted[:B_TWIN])):.2f}")
-    if not d_km < TWIN_FINAL_TOL_KM:
-        raise RuntimeError(f"kernel and twin runs differ by {d_km} km >= {TWIN_FINAL_TOL_KM}")
-
-    # phase 6: summary
+    # phase 7: summary
+    ms21, bound21, bound_by = k3["times"]["21x21"]
+    ms70, bound70, _ = k3["times"]["70x70"]
+    ms120, bound120, _ = k3["times"]["120x120"]
     print(json.dumps({"kernels": [{
         "name": "pines_accel",
         "route": "cuda",
         "source": "nyx_tpu_torch/csrc/pines.cu",
         "replaces": "nyx_tpu/dynamics/gravity_pallas.py:71",
         "launches": launches,
-        "max_abs_err": max_abs,
-        "max_rel_err": max_rel,
-        "ms": kernel_ms,
-        "plain_ms": twin_ms,
+        "max_abs_err": k3["max_abs"],
+        "max_rel_err": k3["max_rel"],
+        "ms": ms21,
+        "ms_timing": "cuda_graph_replay",
+        "plain_ms": k3["twin_ms"],
+        "eager_ms": k3["eager_ms"],
+        "plain_eager_ms": k3["twin_eager_ms"],
+        "bound_ms": bound21,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "parent_ms": k3["parent_ms"],
+        "parent_eager_ms": k3["parent_eager_ms"],
+        "launches_70x70": launches70,
+        "ms_70x70": ms70,
+        "bound_ms_70x70": bound70,
+        "ms_120x120": ms120,
+        "bound_ms_120x120": bound120,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

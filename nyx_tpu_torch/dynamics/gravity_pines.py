@@ -5,7 +5,8 @@ per-degree recursion rows out as one `[n_steps, 8, W_pad]` array, shared by
 the two implementations:
 
 - `pines_accel_cuda`: the hand-written Hopper kernel (`csrc/pines.cu`), f32,
-  on CUDA tensors only;
+  on CUDA tensors only, for a field of any degree; `pines_launch_plan` sizes
+  its blocks and its shared memory;
 - `pines_accel_torch`: the plain PyTorch twin, at the dtype of its input. It
   is the only path for CPU tensors and the reference the kernel is checked
   against on the card.
@@ -16,6 +17,8 @@ the two implementations:
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -24,8 +27,14 @@ from .. import _cuda
 
 _SQRT2 = np.sqrt(2.0)
 _SQRT3 = float(np.sqrt(3.0))
-# Shared memory a block may use without opting in to the dynamic carve-out.
-_STATIC_SMEM_BYTES = 48 * 1024
+# Dynamic shared memory one block may use on an H100 (227 KB).
+SMEM_PER_BLOCK = 232_448
+# Warps a block, one lane each: 1024 threads, the most a block holds, so an
+# SM runs 32 warps at the kernel's 64 registers a thread.
+_WARPS = 32
+# Shared memory a streamed block takes: two buffers of ~47 degree steps, one
+# barrier pair a chunk. Not tuned: any size from one step up is correct.
+_STREAM_BYTES = SMEM_PER_BLOCK // 2
 
 
 def _round_up(x: int, m: int) -> int:
@@ -139,6 +148,53 @@ def _sum_orders(acc):
 pines_accel_torch.cuda_calls = 0  # calls made on CUDA tensors
 
 
+@dataclass(frozen=True)
+class PinesPlan:
+    """How `csrc/pines.cu` runs a table of `n_steps` degree steps: `warps` a
+    block, `buffers` of `chunk_steps` degree steps and `cols` columns in
+    shared memory (one holding the whole table, or two that stream it one
+    group of 32 columns at a time), `smem_bytes` of dynamic shared memory."""
+
+    n_steps: int
+    warps: int
+    buffers: int
+    chunk_steps: int
+    cols: int
+    smem_bytes: int
+
+    @property
+    def whole(self) -> bool:
+        return self.buffers == 1
+
+    def chunks(self) -> list[tuple[int, int]]:
+        """The degree steps [k0, k1) of each buffer load, as the kernel cuts them."""
+        c = self.chunk_steps
+        return [(k0, min(self.n_steps, k0 + c)) for k0 in range(0, self.n_steps, c)]
+
+
+@functools.cache
+def pines_launch_plan(n_steps: int, W_pad: int) -> PinesPlan:
+    """The kernel's block and shared-memory plan for a [n_steps, 8, W_pad]
+    table.
+
+    A buffer holds each staged column's 8 values of a degree step as two
+    float4 (32 bytes). The whole table (W_pad columns and a zero one) is
+    staged once per block when it fits beside the per-warp reduction
+    scratch (4 sums x 33 floats); otherwise two buffers of degree steps
+    stream one group of columns at a time (its 32 and the next group's
+    first), so the footprint does not grow with the degree."""
+    if n_steps < 1 or W_pad < 8 or W_pad % 8:
+        raise ValueError(f"no plan for a table of {n_steps} steps x {W_pad} columns")
+    scratch = 16 * _WARPS * 33
+    whole = 32 * n_steps * (W_pad + 1) + scratch
+    if whole <= SMEM_PER_BLOCK:
+        return PinesPlan(n_steps, _WARPS, 1, n_steps, W_pad + 1, whole)
+    cols = 33
+    chunk = max(1, min(n_steps, (_STREAM_BYTES - scratch) // (64 * cols)))
+    return PinesPlan(n_steps, _WARPS, 2, chunk, cols, 64 * chunk * cols + scratch)
+
+
+@functools.cache
 def _bind():
     built = _cuda.load("pines")
     fn = built.lib.pines_accel_f32
@@ -146,6 +202,7 @@ def _bind():
         [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 5
         + [ctypes.c_float] * 4
+        + [ctypes.c_int] * 5
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -154,11 +211,12 @@ def _bind():
 
 def pines_accel_cuda(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
                      diag1: float):
-    """The Pines recursion on the card (`csrc/pines.cu`), f32.
+    """The Pines recursion on the card (`csrc/pines.cu`), f32, any degree.
 
-    Same contract as `pines_accel_torch`. Raises on anything the kernel does
-    not take: a tensor off CUDA, a dtype other than float32, a non-contiguous
-    or misshapen input, or a table too large for a block's shared memory.
+    Same contract as `pines_accel_torch`; `pines_launch_plan` sizes the
+    launch. Raises on anything the kernel does not take: a tensor off CUDA,
+    a dtype other than float32, a non-contiguous or misshapen input, or a
+    launch the device refuses.
     """
     if not (r_bf.is_cuda and tab.is_cuda) or r_bf.device != tab.device:
         raise ValueError("pines_accel_cuda takes CUDA tensors on one device")
@@ -166,17 +224,14 @@ def pines_accel_cuda(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
         raise TypeError(f"pines_accel_cuda takes float32, got {r_bf.dtype} and {tab.dtype}")
     if r_bf.dim() != 2 or r_bf.shape[1] != 3:
         raise ValueError(f"r_bf must be [B, 3], got {tuple(r_bf.shape)}")
-    if tab.dim() != 3 or tab.shape[1] != 8 or not 2 <= W <= tab.shape[2]:
-        raise ValueError(f"tab must be [n_steps, 8, W_pad >= W={W}], got {tuple(tab.shape)}")
+    if tab.dim() != 3 or tab.shape[1] != 8 or not 2 <= W <= tab.shape[2] or tab.shape[2] % 8:
+        raise ValueError(
+            f"tab must be [n_steps, 8, W_pad >= W={W}, a multiple of 8], got {tuple(tab.shape)}"
+        )
     if not (r_bf.is_contiguous() and tab.is_contiguous()):
         raise ValueError("pines_accel_cuda takes contiguous tensors")
     n_steps, _, W_pad = tab.shape
-    smem = 4 * n_steps * 8 * W_pad
-    if smem > _STATIC_SMEM_BYTES:
-        raise ValueError(
-            f"packed table of {smem} B exceeds the kernel's {_STATIC_SMEM_BYTES} B of "
-            "shared memory (fields above about degree 36)"
-        )
+    plan = pines_launch_plan(n_steps, W_pad)
     out = torch.empty_like(r_bf)
     B = r_bf.shape[0]
     if B == 0:
@@ -189,6 +244,7 @@ def pines_accel_cuda(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
             B, n_steps, W, W_pad, int(q_lo),
             float(np.float32(mu)), float(np.float32(radius)),
             float(np.float32(1.0 / radius)), float(np.float32(diag1)),
+            plan.warps, plan.buffers, plan.chunk_steps, plan.cols, plan.smem_bytes,
             stream,
         )
     if err != 0:

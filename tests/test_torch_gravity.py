@@ -28,6 +28,7 @@ try:
 except ModuleNotFoundError:  # no JAX: only the port-only `cuda` test can run
     jnp = None
 
+from chip_smoke import extend_kaula
 from nyx_tpu_torch import Frames
 from nyx_tpu_torch.dynamics import Harmonics
 from nyx_tpu_torch.dynamics import gravity_pines
@@ -47,6 +48,14 @@ F64_REL = 1e-12
 FIELDS = {
     "21x21-split": (21, 21, "split"),
     "12x6": (12, 6, "f32"),
+}
+# Fields above 21x21: JGM3 in full, whose table the kernel stages whole, and
+# JGM3 extended with Kaula-rule coefficients (`chip_smoke.extend_kaula`) to 120x120 and
+# 160x160, whose tables stream through the kernel's buffers.
+HIGH_FIELDS = {
+    "70x70": (70, 0),
+    "120x120": (120, 7),
+    "160x160": (160, 8),
 }
 
 
@@ -187,6 +196,91 @@ def test_split_accel_with_rotation_matches_reference():
     assert _rel(a - a_low_ref, a_ref - a_low_ref) < F32_REL
 
 
+def _high_stor(name):
+    """The port's GravityFieldData of a HIGH_FIELDS entry, built from JGM3."""
+    degree, seed = HIGH_FIELDS[name]
+    stor = GravityFieldData.from_cof(JGM3, 70, 70, True, Frames.IAU_EARTH)
+    return stor if degree == 70 else extend_kaula(stor, degree, seed)
+
+
+def _high_pair(name, precision):
+    """(reference Harmonics, port Harmonics) of a HIGH_FIELDS entry, both
+    from the same numpy coefficients."""
+    stor = _high_stor(name)
+    rstor = RGravityFieldData(stor.c_nm, stor.s_nm, stor.mu_km3_s2, stor.radius_km,
+                              RFrames.IAU_EARTH)
+    return (RHarmonics.from_stor(rstor, precision=precision),
+            Harmonics.from_stor(stor, precision))
+
+
+@pytest.mark.parametrize(
+    "name,q_lo", [("70x70", 0), ("70x70", 3), ("120x120", 0), ("120x120", 3)]
+)
+def test_twin_high_degree_f32_matches_scan(name, q_lo):
+    """The f32 twin, fed from the port's own packed table, against the
+    reference's f32 scan recursion (`_accel_scan`, the reference's path
+    above degree 40), within the reference's f32 bound."""
+    ref, port = _high_pair(name, "split")
+    r = _positions(16, 23)
+    a_ref = np.asarray(ref._accel_scan(jnp.asarray(r, jnp.float32), q_lo))
+    tab = port.packed_table(0, torch.float32, "cpu")
+    a = gravity_pines.pines_accel_torch(
+        torch.tensor(r, dtype=torch.float32), tab, q_lo, **port.pines_args()
+    )
+    assert a.dtype == torch.float32 and np.isfinite(a.numpy()).all()
+    assert _rel(a.numpy(), a_ref) < F32_REL
+
+
+@pytest.mark.parametrize("q_lo", [0, 3])
+def test_twin_70x70_f64_matches_scan(q_lo):
+    """At f64 the twin's 70x70 recursion is the reference's scan to
+    summation-order round-off (more degrees than at 21x21: 1e-11)."""
+    ref, port = _high_pair("70x70", "f64")
+    r = _positions(16, 29)
+    a_ref = np.asarray(ref._accel_scan(jnp.asarray(r), q_lo))
+    tab = port.packed_table(0, torch.float64, "cpu")
+    a = gravity_pines.pines_accel_torch(
+        torch.tensor(r, dtype=torch.float64), tab, q_lo, **port.pines_args()
+    )
+    assert a.dtype == torch.float64
+    assert _rel(a.numpy(), a_ref) < 1e-11
+
+
+@pytest.mark.parametrize("first", range(2, 201, 23))
+def test_launch_plan_any_size(first):
+    """pines_launch_plan for every degree from 2 to 200 (23 a case) and
+    every width up to 208 columns: the block fits the card's shared memory,
+    its chunks cover every degree step once, and a table that fits beside
+    the reduction scratch is staged whole."""
+    for W_pad in range(8, 209, 8):
+        for steps in range(first, min(first + 23, 201)):
+            plan = gravity_pines.pines_launch_plan(steps, W_pad)
+            assert plan.smem_bytes <= gravity_pines.SMEM_PER_BLOCK
+            covered = [k for k0, k1 in plan.chunks() for k in range(k0, k1)]
+            assert covered == list(range(steps))
+            # a staged column is 8 floats of a degree step
+            scratch = 16 * plan.warps * 33
+            fits = 32 * steps * (W_pad + 1) + scratch <= gravity_pines.SMEM_PER_BLOCK
+            assert plan.whole == fits, (steps, W_pad)
+            if plan.whole:  # every column and a zero one past them
+                assert plan.cols == W_pad + 1
+                assert plan.smem_bytes == 32 * steps * plan.cols + scratch
+            else:  # two buffers of one group's columns and the next group's first
+                assert plan.cols == 33
+                assert plan.smem_bytes == 2 * 32 * plan.chunk_steps * plan.cols + scratch
+            assert plan.warps * 32 <= 1024
+
+
+def test_launch_plan_footprint_fixed_at_any_degree():
+    """Above one column group the streamed footprint no longer grows: a
+    2190x2190 field (EGM2008's full degree) plans like a 200x200 one."""
+    big = gravity_pines.pines_launch_plan(2190, 2192)
+    assert not big.whole and big.smem_bytes <= gravity_pines.SMEM_PER_BLOCK
+    assert big.smem_bytes == gravity_pines.pines_launch_plan(200, 208).smem_bytes
+    with pytest.raises(ValueError):
+        gravity_pines.pines_launch_plan(21, 23)  # W_pad must be a multiple of 8
+
+
 @pytest.mark.cuda
 def test_kernel_matches_twin_on_card():
     """(f) The CUDA kernel against the twin on the card. Both round every
@@ -194,11 +288,16 @@ def test_kernel_matches_twin_on_card():
     for bit (the f32 bound would be 2e-5)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for name, q_lo, B in (("21x21-split", 0, 10_000), ("21x21-split", 3, 37), ("12x6", 0, 37)):
-        deg, order, precision = FIELDS[name]
-        port = Harmonics.from_stor(
-            GravityFieldData.from_cof(JGM3, deg, order, True, Frames.IAU_EARTH), precision
-        )
+    cases = [("21x21-split", 0, 10_000), ("21x21-split", 3, 37), ("12x6", 0, 37)]
+    cases += [(name, 3, B) for name in HIGH_FIELDS for B in (10_000, 37)]
+    for name, q_lo, B in cases:
+        if name in HIGH_FIELDS:
+            port = Harmonics.from_stor(_high_stor(name), "split")
+        else:
+            deg, order, precision = FIELDS[name]
+            port = Harmonics.from_stor(
+                GravityFieldData.from_cof(JGM3, deg, order, True, Frames.IAU_EARTH), precision
+            )
         tab = port.packed_table(0, torch.float32, "cuda")
         r = torch.tensor(_positions(B, 17), dtype=torch.float32, device="cuda")
         kw = port.pines_args()
@@ -210,7 +309,9 @@ def test_kernel_matches_twin_on_card():
 
 def test_kernel_wrapper_rejects_what_it_cannot_run():
     """The kernel wrapper refuses a CPU tensor instead of falling back, and
-    the dispatcher takes the twin for a CPU tensor without launching."""
+    the dispatcher takes the twin for a CPU tensor without launching. No
+    table is refused for its size: every size has a plan, and on a card
+    the largest field here runs through the kernel."""
     _, port = _pair("12x6")
     tab = port.packed_table(0, torch.float32, "cpu")
     kw = port.pines_args()
@@ -219,3 +320,15 @@ def test_kernel_wrapper_rejects_what_it_cannot_run():
     launches = gravity_pines.pines_accel_cuda.launches
     a = gravity_pines.pines_accel(torch.tensor(_positions(4, 1), dtype=torch.float32), tab, 0, **kw)
     assert a.shape == (4, 3) and gravity_pines.pines_accel_cuda.launches == launches
+
+    big = Harmonics.from_stor(_high_stor("160x160"), "split")
+    big_tab = big.packed_table(0, torch.float32, "cpu")
+    assert big_tab.numel() * 4 > gravity_pines.SMEM_PER_BLOCK
+    plan = gravity_pines.pines_launch_plan(*big_tab.shape[::2])
+    assert plan.smem_bytes <= gravity_pines.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="CUDA"):  # the device, not the size
+        gravity_pines.pines_accel_cuda(torch.zeros(4, 3), big_tab, 0, **big.pines_args())
+    if torch.cuda.is_available():
+        r = torch.tensor(_positions(37, 2), dtype=torch.float32, device="cuda")
+        a = gravity_pines.pines_accel_cuda(r, big_tab.cuda(), 3, **big.pines_args())
+        assert bool(torch.isfinite(a).all())
