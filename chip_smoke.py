@@ -14,13 +14,21 @@ raises and exits non-zero:
 3. hold the kernel against its torch twin on the card (21x21 split at
    q_lo 0 and 3, a 12x6 rectangular field, 70x70 JGM3 split at q_lo 0 and
    3, and JGM3 extended with Kaula-rule coefficients to 120x120 and
-   160x160, whose tables stream; each at B = 10,000 and a ragged 37), and
+   160x160, whose tables stream; each at B = 10,000, a ragged 37 and the
+   single lane of the OD leg's propagations), and
    time the kernel on the card at B = 10,000 beside its bound, and the twin
    and the parent's kernel at 21x21;
 4. run the main path, after a 120 s warm-up arc, and count kernel launches;
 5. rerun 64 of its lanes with the gravity twin forced and compare finals;
 6. the same ensemble with 70x70 JGM3 split gravity over one hour, through
    the kernel, and its 64-lane twin rerun;
+6b. the bench's OD leg (bench.py:279-404) through the port: a one-day
+   truth by `for_duration_with_traj`, DSS-65/34/13 range and Doppler every
+   60 s by `TrackingArcSim`, and `ScanKalmanOD` (CKF, stm_jvp_degree 8,
+   f32 algebra) over the whole arc after a 2-hour warm-up arc, timed, with
+   its kernel launches counted; the bench's 100 m guard against the
+   truth; the same arc with the gravity twin forced (every row within
+   1e-3 km) and with f64 algebra (TestF32FilterAlgebra's bounds);
 7. print the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
@@ -42,6 +50,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -53,8 +62,15 @@ B_TWIN = 64
 # The reference's own f32 bound between two f32 evaluations of the
 # recursion (tests/test_dynamics.py:399,415), per-lane relative norm.
 KERNEL_REL_TOL = 2e-5
-# Split vs full-f64 envelope over one day (tests/test_dynamics.py:304), km.
+# Split vs full-f64 envelope over one day (tests/test_dynamics.py:304), km;
+# also the OD leg's bound between its kernel and twin runs, row by row.
 TWIN_FINAL_TOL_KM = 1e-3
+# The bench's OD guard: final position error against the truth (bench.py:376).
+OD_GUARD_KM = 0.1
+# f32 against f64 filter algebra (tests/test_od.py:1782-1792): positions
+# (km) and sigmas (relative).
+OD_F32_POS_KM = 2e-3
+OD_F32_SIGMA_REL = 0.05
 # The card's peaks (NVIDIA H100 SXM data sheet): 67 TFLOP/s of f32 counts a
 # fused multiply-add as two operations; the kernel is built without
 # contraction, so each of its operations is one instruction at half that.
@@ -191,7 +207,7 @@ def phase_kernel_vs_twin(gp, fields, parent):
         tab = h.packed_table(0, torch.float32, "cuda")
         kw = h.pines_args()
         plan = gp.pines_launch_plan(tab.shape[0], tab.shape[2])
-        for B in (B_MAIN, 37):
+        for B in (B_MAIN, 37, 1):
             r = torch.tensor(_leo_body_fixed(B, 1000 + B), dtype=torch.float32, device="cuda")
             a_k = gp.pines_accel_cuda(r, tab, q_lo, **kw)
             a_t = gp.pines_accel_torch(r, tab, q_lo, **kw)
@@ -293,6 +309,113 @@ def run_and_rerun(mc_seed, mvn, propagator, alm, start, seconds, gp, label):
     return launches
 
 
+def phase_od(gp, stor21):
+    """The bench's OD leg through the port on the card (bench.py:295-403).
+    Returns the summary's numbers."""
+    from nyx_tpu_torch import Epoch, Frames, Orbit, Spacecraft
+    from nyx_tpu_torch.dynamics import Harmonics, OrbitalDynamics, SpacecraftDynamics
+    from nyx_tpu_torch.od import (
+        GroundStation, MeasurementType, ScanKalmanOD, Scheduler, SpacecraftUncertainty,
+        StochasticNoise, TrackingArcSim, TrackingDataArc, TrkConfig, WhiteNoise,
+    )
+    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
+
+    types = (MeasurementType.RANGE_KM, MeasurementType.DOPPLER_KM_S)
+    epoch = Epoch.from_gregorian_utc(2021, 3, 4)
+    orbit = Orbit.keplerian(22_000.0, 0.01, 30.0, 80.0, 40.0, 0.0, epoch, Frames.EME2000)
+    truth = Spacecraft.from_orbit(orbit)
+
+    def prop(backend):
+        field = Harmonics.from_stor(stor21, precision="split", backend=backend)
+        dyn = SpacecraftDynamics(OrbitalDynamics.from_model(field, Frames.EME2000), ())
+        return Propagator.rk89(dyn, IntegratorOptions())
+
+    gp.pines_accel_cuda.launches = 0
+    t0 = time.perf_counter()
+    _, traj = prop("auto").with_state(truth).for_duration_with_traj(86_400.0)
+    truth_s, truth_launches = time.perf_counter() - t0, gp.pines_accel_cuda.launches
+
+    stations = [GroundStation.dss65_madrid(10.0), GroundStation.dss34_canberra(10.0),
+                GroundStation.dss13_goldstone(10.0)]
+    for gs in stations:
+        gs.stochastic_noises = {types[0]: StochasticNoise(WhiteNoise(2.0e-3)),
+                                types[1]: StochasticNoise(WhiteNoise(3.0e-6))}
+    cfg = TrkConfig(sampling_s=60.0, scheduler=Scheduler(min_samples=5))
+    t0 = time.perf_counter()
+    arc = TrackingArcSim.with_seed(stations, traj, {g.name: cfg for g in stations},
+                                   seed=0).generate_measurements()
+    sim_s = time.perf_counter() - t0
+    _log(f"OD truth: one day, {len(traj)} nodes, {truth_s:.3f} s, {truth_launches} kernel launches; "
+         f"simulated {len(arc)} rows from {len(arc.trackers)} stations in {sim_s:.3f} s")
+    est0 = SpacecraftUncertainty(nominal=truth, frame="ric", x_km=0.15, y_km=0.15, z_km=0.15,
+                                 vx_km_s=5e-6, vy_km_s=5e-6, vz_km_s=5e-6).to_estimate()
+
+    def od(backend, algebra):
+        return ScanKalmanOD(prop(backend), stations, types=types, variant="ckf",
+                            stm_jvp_degree=8, filter_algebra=algebra)
+
+    head = arc.epochs_tai_s < arc.epochs_tai_s[0] + 7200.0
+    warm_arc = TrackingDataArc(arc.trackers, arc.types, arc.epochs_tai_s[head],
+                               arc.tracker_idx[head], arc.values[head])
+    scan = od("auto", "f32")
+    # the warm-up also counts the host synchronizations that torch flags
+    # (a per-row sync in the filter loop would show as one a row)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            scan.process_arc(est0, warm_arc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    _log(f"OD warm-up, first 2 h ({len(warm_arc)} rows): {syncs} synchronizing calls flagged "
+         f"by torch.cuda.set_sync_debug_mode")
+
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    gp.pines_tangent_torch.cuda_calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = scan.process_arc(est0, arc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = gp.pines_accel_cuda.launches
+    twin_calls, tangent_calls = gp.pines_accel_torch.cuda_calls, gp.pines_tangent_torch.cuda_calls
+    rate = len(arc) / wall
+    truth_fin = traj.at(Epoch.from_tai_seconds_j2000(float(sol.epochs_tai_s[-1]))).to_vector()
+    err_km = float(np.linalg.norm(sol.final_state()[:3] - truth_fin[:3]))
+    walls = ", ".join(f"{k} {v:.3f} s" for k, v in scan.stage_walls_s.items())
+    _log(f"OD filter ({_card_line()}): M = {len(arc)} rows, wall {wall:.3f} s, {rate:.2f} rows/s; "
+         f"stages {walls}; max_gap_s {scan.max_gap_s:.1f}, capture {scan._last_k_cap} nodes; "
+         f"kernel launches {launches}, twin primal calls on CUDA {twin_calls}, "
+         f"twin tangent calls {tangent_calls}; rejected {int(sol.rejected.sum())}; "
+         f"final position error vs truth {err_km * 1e3:.3f} m")
+    if sol.y_est.shape != (len(arc), 9) or not np.isfinite(sol.y_est).all():
+        raise RuntimeError("OD filter: estimates are not finite [M, 9]")
+    if launches <= 0 or twin_calls != 0:
+        raise RuntimeError(f"OD filter did not run through the kernel: {launches} launches, "
+                           f"{twin_calls} twin primal calls on CUDA")
+    if not err_km < OD_GUARD_KM:
+        raise RuntimeError(f"OD filter diverged: {err_km * 1e3:.1f} m final error")
+
+    twin = od("torch", "f32").process_arc(est0, arc)
+    d_twin = float(np.linalg.norm(twin.y_est[:, :3] - sol.y_est[:, :3], axis=1).max())
+    _log(f"OD twin rerun: max row position difference {d_twin:.3e} km")
+    if not d_twin < TWIN_FINAL_TOL_KM:
+        raise RuntimeError(f"OD kernel and twin runs differ by {d_twin} km")
+
+    sol64 = od("auto", "f64").process_arc(est0, arc)
+    d_pos = float(np.linalg.norm(sol64.y_est[:, :3] - sol.y_est[:, :3], axis=1).max())
+    s32, s64 = (np.sqrt(np.diagonal(s.covar, axis1=1, axis2=2)[:, :6]) for s in (sol, sol64))
+    d_sig = float((np.abs(s32 - s64) / s64).max())
+    same_rej = bool(np.array_equal(sol.rejected, sol64.rejected))
+    _log(f"OD f32 vs f64 algebra: max position difference {d_pos:.3e} km, max sigma difference "
+         f"{d_sig:.3e}, rejections identical: {same_rej}")
+    if not (d_pos < OD_F32_POS_KM and d_sig < OD_F32_SIGMA_REL and same_rej):
+        raise RuntimeError("OD f32 algebra outside TestF32FilterAlgebra's bounds")
+    return dict(launches=launches, rows_per_s=rate, rows=len(arc), wall=wall)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--duration-s", type=float, default=86_400.0,
@@ -377,6 +500,9 @@ def main() -> None:
     # phase 6: 70x70 JGM3 split over one hour through the kernel, and its twin rerun
     launches70 = run_and_rerun(42, mvn, propagator_for(stor70), alm, epoch, 3600.0, gp, "70x70 path")
 
+    # phase 6b: the OD leg
+    od = phase_od(gp, GravityFieldData.from_cof(jgm3, 21, 21, True, Frames.IAU_EARTH))
+
     # phase 7: summary
     ms21, bound21, bound_by = k3["times"]["21x21"]
     ms70, bound70, _ = k3["times"]["70x70"]
@@ -404,6 +530,8 @@ def main() -> None:
         "bound_ms_70x70": bound70,
         "ms_120x120": ms120,
         "bound_ms_120x120": bound120,
+        "launches_od": od["launches"],
+        "od_rows_per_s": od["rows_per_s"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

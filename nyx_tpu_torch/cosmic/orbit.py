@@ -2,8 +2,9 @@
 
 Element conversions are batched functions over trailing-dimension tensors,
 differentiable with `torch.func`; the host `Orbit` class builds a scalar
-state from elements in float64 on the CPU. Anomaly conversions, analytic
-propagation, local frames and the element accessors are not ported yet.
+state from elements in float64 on the CPU. The RIC and VNC local frames
+are batched functions too. Anomaly conversions, analytic propagation and
+the element accessors other than `sma_km` are not ported yet.
 """
 
 from __future__ import annotations
@@ -96,6 +97,26 @@ def cartesian_from_keplerian(sma, ecc, inc, raan, aop, ta, mu: float):
     return r, v
 
 
+def ric_dcm(r, v):
+    """DCM [..., 3, 3] from inertial to RIC (radial, in-track, cross-track)
+    frame rows."""
+    rhat = r / _norm(r, keepdim=True)
+    h = torch.linalg.cross(r, v, dim=-1)
+    chat = h / _norm(h, keepdim=True)
+    ihat = torch.linalg.cross(chat, rhat, dim=-1)
+    return torch.stack([rhat, ihat, chat], dim=-2)
+
+
+def vnc_dcm(r, v):
+    """DCM [..., 3, 3] from inertial to VNC (velocity, normal, co-normal)
+    frame rows."""
+    vhat = v / _norm(v, keepdim=True)
+    h = torch.linalg.cross(r, v, dim=-1)
+    nhat = h / _norm(h, keepdim=True)
+    chat = torch.linalg.cross(vhat, nhat, dim=-1)
+    return torch.stack([vhat, nhat, chat], dim=-2)
+
+
 def _f64(x: float):
     return torch.tensor(x, dtype=torch.float64, device="cpu")
 
@@ -119,3 +140,11 @@ class Orbit:
             _f64(aop_deg * _D2R), _f64(ta_deg * _D2R), frame.mu,
         )
         return cls(r.numpy(), v.numpy(), epoch, frame)
+
+    @property
+    def sma_km(self) -> float:
+        """Osculating semi-major axis, computed on the host in float64."""
+        kep = keplerian_from_cartesian(torch.from_numpy(np.asarray(self.r_km, np.float64)),
+                                       torch.from_numpy(np.asarray(self.v_km_s, np.float64)),
+                                       self.frame.mu)
+        return float(kep["sma"])

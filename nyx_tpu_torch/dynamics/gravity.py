@@ -6,13 +6,16 @@ pack_tables`) and evaluated by the hand-written CUDA kernel for float32
 tensors on the card, and by its plain torch twin everywhere else (float64
 evaluations, CPU tensors, or `backend="torch"`).
 
-Not ported yet: gradients through the kernel (`jvp_degree`, the custom JVP
-of the reference), which the Monte Carlo path does not need.
+Derivatives are forward mode only (`torch.func.jvp`, as the OD filter's
+STM and measurement partials take them): every evaluation goes through
+`PinesAccel`, whose tangent is the twin's, over the same degrees or, with
+`jvp_degree`, over the field cut to that degree.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,7 +26,7 @@ from ..cosmic.rotations import apply_dcm, apply_dcm_t, iau_earth_dcm32_pole
 from ..errors import ConfigError
 from ..io.gravity import GravityFieldData
 from ..xmath import norm
-from .gravity_pines import pack_tables, pines_accel, pines_accel_torch
+from .gravity_pines import pack_tables, pines_accel, pines_accel_torch, pines_tangent_torch
 
 _SQRT2 = np.sqrt(2.0)
 
@@ -140,6 +143,10 @@ class Harmonics:
     j2: float = 0.0
     j3: float = 0.0
     backend: str = "auto"
+    # Degree through which derivatives are taken (None: the whole field):
+    # the OD filter's STM stage differentiates a cut field while values
+    # keep the whole one (ScanKalmanOD's stm_jvp_degree).
+    jvp_degree: Optional[int] = None
     MIXED_SPLIT_DEGREE = 3
 
     @classmethod
@@ -188,13 +195,14 @@ class Harmonics:
 
     def accel_body_fixed(self, r_bf):
         """Non-spherical acceleration (km/s^2) in the body-fixed frame,
-        degrees >= 1 only. r_bf: [B, 3] km."""
-        split = self.MIXED_SPLIT_DEGREE
-        if self.precision == "mixed" and self.max_degree > split and r_bf.dtype == torch.float64:
-            low = self._accel_any(r_bf, q_hi=split)
-            high32 = self._accel_any(r_bf.to(torch.float32), q_lo=split)
-            return low + high32.to(r_bf.dtype)
-        return self._accel_any(r_bf)
+        degrees >= 1 only. r_bf: [B, 3] km. With `jvp_degree` set, the
+        value is the full field's and the forward-mode derivative that of
+        the field cut to degree jvp_degree, at the dtype of `r_bf`."""
+        if self.jvp_degree is None:
+            return self._abf_primal(r_bf)
+        q_t = min(self.jvp_degree, self.max_degree)
+        return PinesAccel.apply(
+            r_bf, self._abf_primal, lambda r, dr: self._twin_tangent(r, dr, 0, q_t))
 
     def packed_table(self, q_hi: int, dtype, device):
         """The packed rows (see gravity_pines.pack_tables) as a tensor,
@@ -205,7 +213,11 @@ class Harmonics:
             xs, _, N, M = self._tables
             np_dtype = np.float32 if dtype == torch.float32 else np.float64
             tab = pack_tables(xs, N, M + 2, q_hi, np_dtype)
-            cache[key] = torch.as_tensor(tab, dtype=dtype, device=device)
+            # A tensor made inside a torch.func transform (a first call
+            # from a tangent, say) is the transform's wrapper, without
+            # storage, and would outlive it in the cache; make it plain.
+            with torch._C._DisableFuncTorch():
+                cache[key] = torch.as_tensor(tab, dtype=dtype, device=device)
         return cache[key]
 
     def pines_args(self) -> dict:
@@ -213,12 +225,63 @@ class Harmonics:
         _, diag, _, M = self._tables
         return dict(W=M + 2, mu=self.mu_km3_s2, radius=self.radius_km, diag1=float(diag[1]))
 
+    def with_jvp_degree(self, q: int) -> "Harmonics":
+        """Same field, its derivatives taken through the field cut to degree
+        `q` (see `jvp_degree`)."""
+        return replace(self, jvp_degree=int(q))
+
+    def _abf_primal(self, r_bf):
+        split = self.MIXED_SPLIT_DEGREE
+        if self.precision == "mixed" and self.max_degree > split and r_bf.dtype == torch.float64:
+            low = self._accel_any(r_bf, q_hi=split)
+            high32 = self._accel_any(r_bf.to(torch.float32), q_lo=split)
+            return low + high32.to(r_bf.dtype)
+        return self._accel_any(r_bf)
+
+    def _twin_tangent(self, r_bf, dr_bf, q_lo: int = 0, q_hi: int = 0):
+        """The twin's tangent over degrees (q_lo, q_hi or N]."""
+        tab = self.packed_table(q_hi, r_bf.dtype, r_bf.device)
+        return pines_tangent_torch(r_bf, dr_bf, tab, q_lo, **self.pines_args())
+
     def _accel_any(self, r_bf, q_lo: int = 0, q_hi: int = 0):
         """Degrees q in (q_lo, q_hi or N]. A float32 evaluation on a CUDA
         tensor runs the kernel (or raises); a CPU tensor, a float64
-        evaluation or backend="torch" runs the torch twin."""
+        evaluation or backend="torch" runs the torch twin. Either way the
+        tangent is the twin's, over the same degrees."""
         tab = self.packed_table(q_hi, r_bf.dtype, r_bf.device)
         kw = self.pines_args()
         if self.backend == "torch" or r_bf.dtype != torch.float32:
-            return pines_accel_torch(r_bf, tab, q_lo, **kw)
-        return pines_accel(r_bf.contiguous(), tab, q_lo, **kw)
+            def primal(r):
+                return pines_accel_torch(r, tab, q_lo, **kw)
+        else:
+            def primal(r):
+                return pines_accel(r.contiguous(), tab, q_lo, **kw)
+        return PinesAccel.apply(
+            r_bf, primal, lambda r, dr: self._twin_tangent(r, dr, q_lo, q_hi))
+
+
+class PinesAccel(torch.autograd.Function):
+    """A gravity evaluation `primal(r_bf)` whose forward-mode derivative is
+    `tangent(r_bf, dr_bf)`: the kernel (which has no derivative) or the
+    twin as the primal, the twin's `torch.func.jvp` as the tangent. It is
+    the counterpart of the reference's `custom_jvp` around the Pallas call
+    (gravity.py:353-385) and around the degree-cut field (:295-319).
+
+    Only forward mode is defined. The setup_context form lets
+    `torch.func.jvp` run it: `forward` then sees plain tensors, so the
+    kernel launches inside a transform as outside one."""
+
+    @staticmethod
+    def forward(r_bf, primal, tangent):
+        return primal(r_bf)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        r_bf, _, tangent = inputs
+        ctx.save_for_forward(r_bf)
+        ctx.tangent = tangent
+
+    @staticmethod
+    def jvp(ctx, dr_bf, _primal, _tangent):
+        (r_bf,) = ctx.saved_tensors
+        return ctx.tangent(r_bf, dr_bf)

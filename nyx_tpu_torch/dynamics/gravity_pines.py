@@ -9,9 +9,11 @@ the two implementations:
   its blocks and its shared memory;
 - `pines_accel_torch`: the plain PyTorch twin, at the dtype of its input. It
   is the only path for CPU tensors and the reference the kernel is checked
-  against on the card.
+  against on the card;
+- `pines_tangent_torch`: the twin's forward-mode tangent, which serves the
+  kernel's derivatives (the reference has no tangent Pallas kernel).
 
-`pines_accel` picks between them by the device of the input alone.
+`pines_accel` picks between the first two by the device of the input alone.
 """
 
 from __future__ import annotations
@@ -80,6 +82,22 @@ def pines_accel_torch(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
     """
     if r_bf.is_cuda:
         pines_accel_torch.cuda_calls += 1
+    return _pines_twin(r_bf, tab, q_lo, W, mu, radius, diag1)
+
+
+def pines_tangent_torch(r_bf, dr_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
+                        diag1: float):
+    """Forward-mode tangent [B, 3] of the twin at `r_bf` along `dr_bf`, over
+    the same degree window: `torch.func.jvp` through the plain recursion.
+    The kernel's primal pairs with it in `gravity.PinesAccel`."""
+    if r_bf.is_cuda:
+        pines_tangent_torch.cuda_calls += 1
+    return torch.func.jvp(
+        lambda r: _pines_twin(r, tab, q_lo, W, mu, radius, diag1), (r_bf,), (dr_bf,)
+    )[1]
+
+
+def _pines_twin(r_bf, tab, q_lo, W, mu, radius, diag1):
     dt, dev = r_bf.dtype, r_bf.device
     n_steps, _, W_pad = tab.shape
     x, y, z = r_bf[:, 0], r_bf[:, 1], r_bf[:, 2]
@@ -145,7 +163,8 @@ def _sum_orders(acc):
     return out
 
 
-pines_accel_torch.cuda_calls = 0  # calls made on CUDA tensors
+pines_accel_torch.cuda_calls = 0  # primal calls made on CUDA tensors
+pines_tangent_torch.cuda_calls = 0  # tangent calls made on CUDA tensors
 
 
 @dataclass(frozen=True)

@@ -1,9 +1,10 @@
 """SpacecraftDynamics: the composition root.
 
-Torch port of nyx_tpu/dynamics/spacecraft_dyn.py without STM or guidance:
+Torch port of nyx_tpu/dynamics/spacecraft_dyn.py without guidance:
 orbital dynamics + force models (SRP, drag) as one batched EOM over `[B, 9]`
-float64 states [x,y,z,vx,vy,vz,Cr,Cd,m_prop]. The force models evaluate in
-float32 and their sum is cast back to the state dtype.
+float64 states [x,y,z,vx,vy,vz,Cr,Cd,m_prop], and with the STM over
+`[B, 90]` states. The force models evaluate in float32 and their sum is
+cast back to the state dtype.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from ..time import Epoch
 from .orbital import EomContext, OrbitalDynamics
 
 CORE_DIM = 9
+STM_DIM = CORE_DIM * CORE_DIM
 
 
 class SpacecraftDynamics:
@@ -47,10 +49,40 @@ class SpacecraftDynamics:
             table = almanac.build_table(bodies, frame.center, start, end, device=device)
         return EomContext(epoch0_tdb=epoch0.to_tdb_seconds(), table=table, frame=frame)
 
-    def make_eom(self):
+    def make_eom(self, with_stm: bool = False):
         """`eom(t_rel_s [B], y [B, 9], ctx, sc_params) -> [B, 9]`. `sc_params`
-        holds dry_mass_kg, srp_area_m2 and drag_area_m2 (floats)."""
+        holds dry_mass_kg, srp_area_m2 and drag_area_m2 (floats).
 
+        with_stm=True: the EOM of [B, 90] states, the 9 of the state and
+        the 81 of its row-major STM Phi, with Phi' = A Phi and A = d(y9')/d(y9)
+        from 9 forward-mode passes. The reference vmaps one jvp over the 9
+        unit tangents; here they are folded into the batch axis of one
+        `torch.func.jvp` over [9B, 9], so the gravity kernel, which cannot
+        run under vmap, takes the primal of every pass in one launch. Lane
+        block 0 of that primal is the state derivative: lanes are
+        independent, so it is the [B, 9] EOM's value bit for bit."""
+        core = self._core_eom()
+        if not with_stm:
+            return core
+
+        def eom(t_rel, y, ctx, p):
+            B = y.shape[0]
+            y9 = y[:, :CORE_DIM]
+            eye = torch.eye(CORE_DIM, dtype=y.dtype, device=y.device)
+            ydot, cols = torch.func.jvp(
+                lambda yy: core(t_rel.repeat(CORE_DIM), yy, ctx, p),
+                (y9.repeat(CORE_DIM, 1),),
+                (eye.repeat_interleave(B, dim=0),),
+            )
+            # cols[j*B + b, i] = A[b, i, j]
+            a_mat = cols.reshape(CORE_DIM, B, CORE_DIM).permute(1, 2, 0)
+            phi = y[:, CORE_DIM:].reshape(B, CORE_DIM, CORE_DIM)
+            phi_dot = torch.matmul(a_mat, phi)
+            return torch.cat([ydot[:B], phi_dot.reshape(B, STM_DIM)], dim=-1)
+
+        return eom
+
+    def _core_eom(self):
         def eom(t_rel, y9, ctx, p):
             t_tdb = ctx.epoch0_tdb + t_rel
             r = y9[..., 0:3]

@@ -7,7 +7,7 @@ the builtin (`ValueError`) the caller may already catch, under the common
 
 from __future__ import annotations
 
-__all__ = ["NyxError", "StateError", "ConfigError"]
+__all__ = ["NyxError", "StateError", "ConfigError", "PropagationError", "TrajError"]
 
 
 class NyxError(Exception):
@@ -21,3 +21,13 @@ class StateError(NyxError, ValueError):
 
 class ConfigError(NyxError, ValueError):
     """Invalid or inconsistent configuration (io/mod.rs ConfigError)."""
+
+
+class PropagationError(NyxError, RuntimeError):
+    """Integrator failures: NaN states, min-step underflow, unreached
+    stop conditions (propagators/mod.rs PropagationError)."""
+
+
+class TrajError(NyxError, ValueError):
+    """Trajectory storage/interpolation errors: out-of-bounds epoch,
+    empty trajectory, capture overflow (md/trajectory/mod.rs TrajError)."""

@@ -2,7 +2,8 @@
 
 Torch port of nyx_tpu/mc/montecarlo.py `run_until_epoch`: dispersed states
 are drawn from a seeded `torch.Generator`, stacked [B, 9] and advanced
-through one batched adaptive propagation on the requested device. Device
+through one batched adaptive propagation on the card, or on the device the
+caller names. Device
 meshes, trajectory capture, chunking, `skip`/resume and guidance are not
 ported yet.
 """
@@ -25,15 +26,16 @@ class MonteCarlo:
         self.random_state = random_state
         self.seed = seed
 
-    def generate_states(self, n: int, *, device) -> torch.Tensor:
+    def generate_states(self, n: int, *, device="cuda") -> torch.Tensor:
         """[n, 9] float64 dispersed initial states; deterministic in the seed."""
         gen = torch.Generator(device="cpu")
         gen.manual_seed(self.seed)
         return self.random_state.sample(n, gen, device=device)
 
-    def run_until_epoch(self, prop, almanac, end_epoch: Epoch, n: int, *, device,
+    def run_until_epoch(self, prop, almanac, end_epoch: Epoch, n: int, *, device="cuda",
                         _y0=None) -> Results:
-        """Propagate n dispersed samples to `end_epoch` on `device`.
+        """Propagate n dispersed samples to `end_epoch` on `device` (the card
+        unless the caller asks for the CPU).
 
         `_y0` ([n, 9] numpy array or tensor) replaces the draw, so two
         implementations can be fed identical initial states.

@@ -13,7 +13,9 @@ asks the device whether any lane is still RUNNING only once every
 CHECK_EVERY steps: the steps in between are exact no-ops for finished
 lanes, so the result equals a check after every step (the contract of the
 reference's fixed-trip `loop_mode="scan"`), with one host sync per chunk.
-Fixed-step methods (RK4Fixed) are not ported yet.
+Fixed-step methods (RK4Fixed) are not ported yet; `_rk_stages` serves the
+OD filter's one fixed RK step per gap (the reference's `_rk_stages_looped`
+computes the same increment with its stages in a scan).
 """
 
 from __future__ import annotations
@@ -41,6 +43,11 @@ class PropResult(NamedTuple):
     n_rejected: torch.Tensor  # [B] int32
     error: torch.Tensor  # [B] last error estimate
     step: torch.Tensor  # [B] next (signed) step size, s
+    # with n_capture > 0: accepted steps' times [B, K], states [B, K, N]
+    # and the count written [B] (saturating at K)
+    traj_t: Optional[torch.Tensor] = None
+    traj_y: Optional[torch.Tensor] = None
+    traj_len: Optional[torch.Tensor] = None
 
 
 def _rk_stages(eom, a, b, b_star, c, t, y, h):
@@ -73,12 +80,19 @@ def propagate(
     method: IntegratorMethod = IntegratorMethod.RK89,
     finally_fn: Optional[Callable] = None,
     eom_args: tuple = (),
+    n_capture: int = 0,
+    capture_stride: int = 1,
 ) -> PropResult:
     """Propagate a batch of float64 states `y0` [B, N] for `duration_s`
     (float, or [B] tensor; may be negative), on the device of `y0`.
 
     `eom(t [B], y [B, N], *eom_args) -> [B, N]`; `finally_fn(t, y,
     *eom_args) -> y` runs on every accepted step (Dynamics::finally).
+    `n_capture` > 0 keeps every `capture_stride`-th accepted step (and the
+    last) of each lane in a K = n_capture buffer, as the reference does
+    (integrator.py:377-395): a full buffer overwrites its last slot, and
+    `traj_len` saturates at K, which callers read as "grow and rerun".
+    The writes are masked index writes on the device, with no host sync.
     """
     if y0.dtype != torch.float64 or y0.dim() != 2:
         raise ValueError(f"y0 must be a [B, N] float64 tensor, got {y0.dtype} {tuple(y0.shape)}")
@@ -113,6 +127,13 @@ def propagate(
     n_acc = torch.zeros(B, **i32)
     n_rej = torch.zeros(B, **i32)
     comp = torch.zeros_like(y)  # Kahan compensation of the state updates
+    K = int(n_capture)
+    if K > 0:
+        # column K is a drop slot for lanes that write nothing this step
+        lanes = torch.arange(B, device=y0.device)
+        traj_t = torch.zeros(B, K + 1, **f64)
+        traj_y = torch.zeros(B, K + 1, N, **f64)
+        traj_len = torch.zeros(B, **i32)
 
     for it in range(options.max_iterations):
         if it % CHECK_EVERY == 0 and not bool((status == RUNNING).any()):
@@ -173,6 +194,16 @@ def propagate(
         attempts = torch.where(do_accept, 1, torch.where(do_reject, attempts + 1, attempts))
         error = torch.where(running, err, error)
 
-    return PropResult(
+        if K > 0:
+            want = do_accept & (((n_acc - 1) % capture_stride == 0) | finished)
+            slot = torch.where(want, torch.clamp(traj_len, max=K - 1), K).long()
+            traj_t[lanes, slot] = t_new
+            traj_y[lanes, slot] = next_y
+            traj_len = torch.clamp(traj_len + want.to(torch.int32), max=K)
+
+    res = PropResult(
         t=t, y=y, status=status, n_accepted=n_acc, n_rejected=n_rej, error=error, step=h
     )
+    if K > 0:
+        res = res._replace(traj_t=traj_t[:, :K], traj_y=traj_y[:, :K], traj_len=traj_len)
+    return res

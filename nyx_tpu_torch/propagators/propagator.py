@@ -18,3 +18,10 @@ class Propagator:
     @classmethod
     def rk89(cls, dynamics, opts=None) -> "Propagator":
         return cls(dynamics, IntegratorMethod.RK89, opts)
+
+    def with_state(self, state, almanac=None, *, device="cuda"):
+        """A PropInstance propagating `state` on `device` (the card unless
+        the caller asks for another)."""
+        from .instance import PropInstance
+
+        return PropInstance(self, state, almanac, device=device)

@@ -283,12 +283,16 @@ def test_launch_plan_footprint_fixed_at_any_degree():
 
 @pytest.mark.cuda
 def test_kernel_matches_twin_on_card():
-    """(f) The CUDA kernel against the twin on the card. Both round every
-    f32 operation alike and sum the orders in one order, so they agree bit
-    for bit (the f32 bound would be 2e-5)."""
+    """(f) The CUDA kernel against the twin on the card, from B = 1 (the
+    OD leg's single-lane propagations) up. Both round every f32 operation
+    alike and sum the orders in one order, so they agree bit for bit (the
+    f32 bound would be 2e-5). Then the kernel's primal with the twin's
+    tangent (gravity.PinesAccel) at the OD shapes, whole and cut to degree
+    8, against the twin under torch.func.jvp."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    cases = [("21x21-split", 0, 10_000), ("21x21-split", 3, 37), ("12x6", 0, 37)]
+    cases = [("21x21-split", 0, 10_000), ("21x21-split", 3, 37), ("12x6", 0, 37),
+             ("21x21-split", 0, 1), ("70x70", 0, 1)]
     cases += [(name, 3, B) for name in HIGH_FIELDS for B in (10_000, 37)]
     for name, q_lo, B in cases:
         if name in HIGH_FIELDS:
@@ -305,6 +309,35 @@ def test_kernel_matches_twin_on_card():
         a_t = gravity_pines.pines_accel_torch(r, tab, q_lo, **kw)
         torch.cuda.synchronize()
         assert torch.equal(a_k, a_t), (name, q_lo, B)
+
+    # the tangent: under torch.func.jvp the Harmonics evaluation launches
+    # the kernel for the primal and takes the twin's tangent; against the
+    # twin differentiated directly, the primal is bitwise equal, and so is
+    # the tangent (the same twin operations)
+    deg, order, precision = FIELDS["21x21-split"]
+    port = Harmonics.from_stor(
+        GravityFieldData.from_cof(JGM3, deg, order, True, Frames.IAU_EARTH), precision)
+    tab = port.packed_table(0, torch.float32, "cuda")
+    kw = port.pines_args()
+    for B, jvp_degree in ((1, None), (1_157, None), (1_157, 8)):
+        field = port if jvp_degree is None else port.with_jvp_degree(jvp_degree)
+        r = torch.tensor(_positions(B, 19), dtype=torch.float32, device="cuda")
+        dr = torch.tensor(np.random.default_rng(B).normal(size=(B, 3)), dtype=torch.float32,
+                          device="cuda")
+        launches = gravity_pines.pines_accel_cuda.launches
+        twin_calls = gravity_pines.pines_accel_torch.cuda_calls
+        a, da = torch.func.jvp(field.accel_body_fixed, (r,), (dr,))
+        assert gravity_pines.pines_accel_cuda.launches == launches + 1
+        assert gravity_pines.pines_accel_torch.cuda_calls == twin_calls
+        tab_t = tab if jvp_degree is None else field.packed_table(jvp_degree, torch.float32, "cuda")
+        a_t, da_t = torch.func.jvp(
+            lambda x: gravity_pines.pines_accel_torch(x, tab_t, 0, **kw), (r,), (dr,))
+        torch.cuda.synchronize()
+        if jvp_degree is None:
+            assert torch.equal(a, a_t), B
+        else:
+            assert torch.equal(a, gravity_pines.pines_accel_torch(r, tab, 0, **kw)), B
+        assert torch.equal(da, da_t), (B, jvp_degree)
 
 
 def test_kernel_wrapper_rejects_what_it_cannot_run():
