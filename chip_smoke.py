@@ -29,6 +29,14 @@ raises and exits non-zero:
    its kernel launches counted; the bench's 100 m guard against the
    truth; the same arc with the gravity twin forced (every row within
    1e-3 km) and with f64 algebra (TestF32FilterAlgebra's bounds);
+6c. the bench's flagship OD leg (bench.py:407-434) on 6b's truth: the
+   same stations two-way (60 s integration), simulated by
+   `TrackingArcSim`, and the segmented EKF (`variant="ekf"`, SNC, 3-sigma
+   gate, stm_jvp_degree 8, f32 algebra) from a dispersed start, after a
+   2-hour warm-up arc, timed over the whole arc with its kernel launches
+   counted; the bench's 100 m guard; the arc's first 6 h through the
+   kernel, the gravity twin (every row within 1e-3 km) and f64 algebra
+   (TestF32FilterAlgebra's bounds, the same rejections);
 7. print the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
@@ -309,37 +317,75 @@ def run_and_rerun(mc_seed, mvn, propagator, alm, start, seconds, gp, label):
     return launches
 
 
+def _head(arc, seconds: float):
+    """The rows of `arc` in its first `seconds`."""
+    from nyx_tpu_torch.od import TrackingDataArc
+
+    keep = arc.epochs_tai_s < arc.epochs_tai_s[0] + seconds
+    return TrackingDataArc(arc.trackers, arc.types, arc.epochs_tai_s[keep], arc.tracker_idx[keep],
+                           arc.values[keep])
+
+
+def _dsn_stations(integration_time_s=None):
+    """DSS-65, DSS-34 and DSS-13 at a 10 deg mask with the bench's white
+    noise (range 2 m, Doppler 3 mm/s), two-way when given a time."""
+    from nyx_tpu_torch.od import GroundStation, MeasurementType, StochasticNoise, WhiteNoise
+
+    stations = [GroundStation.dss65_madrid(10.0), GroundStation.dss34_canberra(10.0),
+                GroundStation.dss13_goldstone(10.0)]
+    for gs in stations:
+        gs.stochastic_noises = {MeasurementType.RANGE_KM: StochasticNoise(WhiteNoise(2.0e-3)),
+                                MeasurementType.DOPPLER_KM_S: StochasticNoise(WhiteNoise(3.0e-6))}
+        gs.integration_time_s = integration_time_s
+    return stations
+
+
+def _od_propagator(stor21, backend):
+    from nyx_tpu_torch import Frames
+    from nyx_tpu_torch.dynamics import Harmonics, OrbitalDynamics, SpacecraftDynamics
+    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
+
+    field = Harmonics.from_stor(stor21, precision="split", backend=backend)
+    dyn = SpacecraftDynamics(OrbitalDynamics.from_model(field, Frames.EME2000), ())
+    return Propagator.rk89(dyn, IntegratorOptions())
+
+
+def _f32_vs_f64(label, sol, sol64):
+    """Hold an f32-algebra solution to the f64 one (TestF32FilterAlgebra's
+    bounds, the same rejections); a rejection that differs is printed
+    with its ratio in both runs."""
+    d_pos = float(np.linalg.norm(sol64.y_est[:, :3] - sol.y_est[:, :3], axis=1).max())
+    s32, s64 = (np.sqrt(np.diagonal(s.covar, axis1=1, axis2=2)[:, :6]) for s in (sol, sol64))
+    d_sig = float((np.abs(s32 - s64) / s64).max())
+    same_rej = bool(np.array_equal(sol.rejected, sol64.rejected))
+    _log(f"{label} f32 vs f64 algebra: max position difference {d_pos:.3e} km, max sigma "
+         f"difference {d_sig:.3e}, rejections identical: {same_rej}")
+    for i in np.flatnonzero(sol.rejected != sol64.rejected):
+        _log(f"{label} row {i}: rejected {bool(sol.rejected[i])} at ratio {sol.ratio[i]:.6f} (f32), "
+             f"{bool(sol64.rejected[i])} at ratio {sol64.ratio[i]:.6f} (f64)")
+    if not (d_pos < OD_F32_POS_KM and d_sig < OD_F32_SIGMA_REL and same_rej):
+        raise RuntimeError(f"{label} f32 algebra outside TestF32FilterAlgebra's bounds")
+
+
 def phase_od(gp, stor21):
     """The bench's OD leg through the port on the card (bench.py:295-403).
-    Returns the summary's numbers."""
+    Returns the summary's numbers, and the truth for phase 6c."""
     from nyx_tpu_torch import Epoch, Frames, Orbit, Spacecraft
-    from nyx_tpu_torch.dynamics import Harmonics, OrbitalDynamics, SpacecraftDynamics
     from nyx_tpu_torch.od import (
-        GroundStation, MeasurementType, ScanKalmanOD, Scheduler, SpacecraftUncertainty,
-        StochasticNoise, TrackingArcSim, TrackingDataArc, TrkConfig, WhiteNoise,
+        MeasurementType, ScanKalmanOD, Scheduler, SpacecraftUncertainty, TrackingArcSim, TrkConfig,
     )
-    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
 
     types = (MeasurementType.RANGE_KM, MeasurementType.DOPPLER_KM_S)
     epoch = Epoch.from_gregorian_utc(2021, 3, 4)
     orbit = Orbit.keplerian(22_000.0, 0.01, 30.0, 80.0, 40.0, 0.0, epoch, Frames.EME2000)
     truth = Spacecraft.from_orbit(orbit)
 
-    def prop(backend):
-        field = Harmonics.from_stor(stor21, precision="split", backend=backend)
-        dyn = SpacecraftDynamics(OrbitalDynamics.from_model(field, Frames.EME2000), ())
-        return Propagator.rk89(dyn, IntegratorOptions())
-
     gp.pines_accel_cuda.launches = 0
     t0 = time.perf_counter()
-    _, traj = prop("auto").with_state(truth).for_duration_with_traj(86_400.0)
+    _, traj = _od_propagator(stor21, "auto").with_state(truth).for_duration_with_traj(86_400.0)
     truth_s, truth_launches = time.perf_counter() - t0, gp.pines_accel_cuda.launches
 
-    stations = [GroundStation.dss65_madrid(10.0), GroundStation.dss34_canberra(10.0),
-                GroundStation.dss13_goldstone(10.0)]
-    for gs in stations:
-        gs.stochastic_noises = {types[0]: StochasticNoise(WhiteNoise(2.0e-3)),
-                                types[1]: StochasticNoise(WhiteNoise(3.0e-6))}
+    stations = _dsn_stations()
     cfg = TrkConfig(sampling_s=60.0, scheduler=Scheduler(min_samples=5))
     t0 = time.perf_counter()
     arc = TrackingArcSim.with_seed(stations, traj, {g.name: cfg for g in stations},
@@ -351,12 +397,10 @@ def phase_od(gp, stor21):
                                  vx_km_s=5e-6, vy_km_s=5e-6, vz_km_s=5e-6).to_estimate()
 
     def od(backend, algebra):
-        return ScanKalmanOD(prop(backend), stations, types=types, variant="ckf",
+        return ScanKalmanOD(_od_propagator(stor21, backend), stations, types=types, variant="ckf",
                             stm_jvp_degree=8, filter_algebra=algebra)
 
-    head = arc.epochs_tai_s < arc.epochs_tai_s[0] + 7200.0
-    warm_arc = TrackingDataArc(arc.trackers, arc.types, arc.epochs_tai_s[head],
-                               arc.tracker_idx[head], arc.values[head])
+    warm_arc = _head(arc, 7200.0)
     scan = od("auto", "f32")
     # the warm-up also counts the host synchronizations that torch flags
     # (a per-row sync in the filter loop would show as one a row)
@@ -384,7 +428,7 @@ def phase_od(gp, stor21):
     rate = len(arc) / wall
     truth_fin = traj.at(Epoch.from_tai_seconds_j2000(float(sol.epochs_tai_s[-1]))).to_vector()
     err_km = float(np.linalg.norm(sol.final_state()[:3] - truth_fin[:3]))
-    walls = ", ".join(f"{k} {v:.3f} s" for k, v in scan.stage_walls_s.items())
+    walls = ", ".join(f"{k} {scan.stage_walls_s[k]:.3f} s" for k in ("s1", "s2", "s3", "s4"))
     _log(f"OD filter ({_card_line()}): M = {len(arc)} rows, wall {wall:.3f} s, {rate:.2f} rows/s; "
          f"stages {walls}; max_gap_s {scan.max_gap_s:.1f}, capture {scan._last_k_cap} nodes; "
          f"kernel launches {launches}, twin primal calls on CUDA {twin_calls}, "
@@ -404,15 +448,87 @@ def phase_od(gp, stor21):
     if not d_twin < TWIN_FINAL_TOL_KM:
         raise RuntimeError(f"OD kernel and twin runs differ by {d_twin} km")
 
-    sol64 = od("auto", "f64").process_arc(est0, arc)
-    d_pos = float(np.linalg.norm(sol64.y_est[:, :3] - sol.y_est[:, :3], axis=1).max())
-    s32, s64 = (np.sqrt(np.diagonal(s.covar, axis1=1, axis2=2)[:, :6]) for s in (sol, sol64))
-    d_sig = float((np.abs(s32 - s64) / s64).max())
-    same_rej = bool(np.array_equal(sol.rejected, sol64.rejected))
-    _log(f"OD f32 vs f64 algebra: max position difference {d_pos:.3e} km, max sigma difference "
-         f"{d_sig:.3e}, rejections identical: {same_rej}")
-    if not (d_pos < OD_F32_POS_KM and d_sig < OD_F32_SIGMA_REL and same_rej):
-        raise RuntimeError("OD f32 algebra outside TestF32FilterAlgebra's bounds")
+    _f32_vs_f64("OD", sol, od("auto", "f64").process_arc(est0, arc))
+    return dict(launches=launches, rows_per_s=rate, rows=len(arc), wall=wall, truth=truth,
+                traj=traj)
+
+
+def phase_od_flagship(gp, stor21, truth, traj):
+    """The bench's flagship OD leg through the port on the card
+    (bench.py:407-434) on phase 6b's truth. Returns the summary's numbers."""
+    from nyx_tpu_torch import Epoch
+    from nyx_tpu_torch.od import (
+        MeasurementType, ProcessNoise, ScanKalmanOD, Scheduler, SpacecraftUncertainty,
+        TrackingArcSim, TrkConfig,
+    )
+
+    t_phase = time.perf_counter()
+    types = (MeasurementType.RANGE_KM, MeasurementType.DOPPLER_KM_S)
+    stations = _dsn_stations(integration_time_s=60.0)
+    cfg = TrkConfig(sampling_s=60.0, scheduler=Scheduler(min_samples=5))
+    t0 = time.perf_counter()
+    arc = TrackingArcSim.with_seed(stations, traj, {g.name: cfg for g in stations},
+                                   seed=0).generate_measurements()
+    _log(f"OD flagship: simulated {len(arc)} two-way rows from {len(arc.trackers)} stations in "
+         f"{time.perf_counter() - t0:.3f} s")
+    est = SpacecraftUncertainty(nominal=truth, frame="ric", x_km=0.15, y_km=0.15, z_km=0.15,
+                                vx_km_s=5e-6, vy_km_s=5e-6, vz_km_s=5e-6).to_estimate()
+    draw = np.random.default_rng(7).multivariate_normal(np.zeros(9), est.covar)
+    est.nominal = truth.set_vector(truth.epoch, truth.to_vector() + draw)
+
+    def od(backend, algebra):
+        return ScanKalmanOD(_od_propagator(stor21, backend), stations, types=types, variant="ekf",
+                            process_noise=(ProcessNoise.from_diag([1e-16] * 3, 3600.0),),
+                            resid_rejection_sigmas=3.0, stm_jvp_degree=8, filter_algebra=algebra)
+
+    scan = od("auto", "f32")
+    scan.process_arc(est, _head(arc, 7200.0))  # warm-up
+
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    gp.pines_tangent_torch.cuda_calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = scan.process_arc(est, arc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = gp.pines_accel_cuda.launches
+    twin_calls, tangent_calls = gp.pines_accel_torch.cuda_calls, gp.pines_tangent_torch.cuda_calls
+    w = scan.stage_walls_s
+    rate = len(arc) / wall
+    truth_fin = traj.at(Epoch.from_tai_seconds_j2000(float(sol.epochs_tai_s[-1]))).to_vector()
+    err_km = float(np.linalg.norm(sol.final_state()[:3] - truth_fin[:3]))
+    _log(f"OD flagship filter ({_card_line()}), EKF, f32 algebra, timed process_arc:")
+    _log(f"  rows {len(arc)}")
+    _log(f"  segments {w['segments']} (capture {scan._last_k_cap} nodes, max_gap_s {scan.max_gap_s:.1f})")
+    _log(f"  wall {wall:.3f} s, {rate:.2f} rows/s")
+    _log("  stage walls summed over the segments: "
+         + ", ".join(f"{k} {w[k]:.3f} s" for k in ("s1", "s2", "s3", "s4")))
+    _log(f"  s1 integrator iterations {w['s1_iterations']}")
+    _log(f"  rejected {int(sol.rejected.sum())}")
+    _log(f"  kernel launches {launches}, twin primal calls on CUDA {twin_calls}, "
+         f"twin tangent calls {tangent_calls}")
+    _log(f"  final position error vs truth {err_km * 1e3:.3f} m")
+    if sol.y_est.shape != (len(arc), 9) or not np.isfinite(sol.y_est).all():
+        raise RuntimeError("OD flagship: estimates are not finite [M, 9]")
+    if launches <= 0 or twin_calls != 0:
+        raise RuntimeError(f"OD flagship did not run through the kernel: {launches} launches, "
+                           f"{twin_calls} twin primal calls on CUDA")
+    if not err_km < OD_GUARD_KM:
+        raise RuntimeError(f"OD flagship filter diverged: {err_km * 1e3:.1f} m final error")
+
+    # the twin and f64 reruns take the arc's first 6 h: a whole day through
+    # the twin pays its gravity at B = 1 in every stage-1 step
+    prefix = _head(arc, 6 * 3600.0)
+    sol6 = scan.process_arc(est, prefix)
+    twin = od("torch", "f32").process_arc(est, prefix)
+    d_twin = float(np.linalg.norm(twin.y_est[:, :3] - sol6.y_est[:, :3], axis=1).max())
+    _log(f"OD flagship twin rerun of the first 6 h ({len(prefix)} rows): max row position "
+         f"difference {d_twin:.3e} km")
+    if not d_twin < TWIN_FINAL_TOL_KM:
+        raise RuntimeError(f"OD flagship kernel and twin runs differ by {d_twin} km")
+    _f32_vs_f64("OD flagship, first 6 h,", sol6, od("auto", "f64").process_arc(est, prefix))
+    _log(f"OD flagship phase: {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, rows_per_s=rate, rows=len(arc), wall=wall)
 
 
@@ -500,8 +616,10 @@ def main() -> None:
     # phase 6: 70x70 JGM3 split over one hour through the kernel, and its twin rerun
     launches70 = run_and_rerun(42, mvn, propagator_for(stor70), alm, epoch, 3600.0, gp, "70x70 path")
 
-    # phase 6b: the OD leg
-    od = phase_od(gp, GravityFieldData.from_cof(jgm3, 21, 21, True, Frames.IAU_EARTH))
+    # phase 6b: the OD leg; 6c: the flagship OD leg on its truth
+    stor21 = GravityFieldData.from_cof(jgm3, 21, 21, True, Frames.IAU_EARTH)
+    od = phase_od(gp, stor21)
+    flagship = phase_od_flagship(gp, stor21, od["truth"], od["traj"])
 
     # phase 7: summary
     ms21, bound21, bound_by = k3["times"]["21x21"]
@@ -532,6 +650,8 @@ def main() -> None:
         "bound_ms_120x120": bound120,
         "launches_od": od["launches"],
         "od_rows_per_s": od["rows_per_s"],
+        "launches_od_flagship": flagship["launches"],
+        "od_flagship_rows_per_s": flagship["rows_per_s"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

@@ -1,4 +1,6 @@
-"""Orbit determination: tracking simulation and the staged batched CKF."""
+"""Orbit determination: one- and two-way tracking simulation, and the staged
+batched filters (the CKF, with Gauss-Newton iterations, and the segmented
+reference-update EKF)."""
 
 from .estimate import KfEstimate, SpacecraftUncertainty
 from .ground_station import GroundStation

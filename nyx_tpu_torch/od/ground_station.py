@@ -1,15 +1,17 @@
-"""Ground stations: geometry, visibility and one-way observables.
+"""Ground stations: geometry, visibility, one-way and two-way observables.
 
 Torch port of the core of nyx_tpu/od/ground_station.py. Observables are
 batched over epochs: `station_geometry` gives each epoch's station
 position and velocity in J2000 and the J2000 -> SEZ rotation, and
 `observe` the range, range rate, azimuth, elevation or position of a
-spacecraft state against it. The station velocity is d/dt of
+spacecraft state against it, optionally backdated by the downlink light
+time (`light_time_backdate`, per row). The station velocity is d/dt of
 `frame.dcm_from_j2000(t).T @ r_bf`, taken with `torch.func.jvp` over time
 as the reference takes it with `jax.jvp`. The OD filter gathers the
 geometry by tracker index (per-row latitude, longitude and height) and
-differentiates `observe` alone. YAML I/O, terrain masks, cross-body
-targets, two-way integration and light time are not ported yet.
+differentiates `observe` alone. A two-way observable (`two_way_fn`) is the
+average of the one-way values at t - T_int and t. YAML I/O, terrain masks,
+timestamp noise and cross-body targets are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..constants import SPEED_OF_LIGHT_KM_S
 from ..cosmic.frames import Frame, Frames
 from ..cosmic.rotations import apply_dcm, apply_dcm_t
 from ..xmath import norm
@@ -76,9 +79,28 @@ def station_geometry(t_tdb, lat_deg, lon_deg, height_km, frame: Frame):
     return r_st, v_st, sez
 
 
-def observe(rv6, r_st, v_st, sez, types: Sequence[str]):
+def light_time_backdate(rv6, r_st):
+    """States rv6 [K, 6] moved back along their velocity by the downlink
+    light time tau = rho(t - tau) / c, from two fixed-point iterations
+    with the station position r_st [K, 3] at t (the reference's
+    `_light_time_backdate`, ground_station.py:252-266; linear in velocity,
+    the tau^2 a / 2 term is ~mm at LEO ranges). Differentiable, so H
+    includes the correction."""
+    r, v = rv6[:, 0:3], rv6[:, 3:6]
+    tau = norm(r - r_st)[:, None] / SPEED_OF_LIGHT_KM_S
+    tau = norm(r - tau * v - r_st)[:, None] / SPEED_OF_LIGHT_KM_S
+    return torch.cat([r - tau * v, v], dim=-1)
+
+
+def observe(rv6, r_st, v_st, sez, types: Sequence[str], lt=None):
     """Noiseless one-way observables [K, T] of spacecraft states rv6
-    [K, 6] (J2000) against the station geometry of `station_geometry`."""
+    [K, 6] (J2000) against the station geometry of `station_geometry`.
+    `lt` ([K] tensor, or a bool for every row): rows where it is true
+    (> 0) see the state backdated by the light time."""
+    if isinstance(lt, bool):
+        lt = torch.ones_like(rv6[:, 0]) if lt else None
+    if lt is not None:
+        rv6 = torch.where(lt[:, None] > 0, light_time_backdate(rv6, r_st), rv6)
     rho = apply_dcm(sez, rv6[:, 0:3] - r_st)
     rho_dot = apply_dcm(sez, rv6[:, 3:6] - v_st)
     rng = norm(rho)
@@ -109,6 +131,9 @@ class GroundStation:
         MeasurementType.RANGE_KM,
         MeasurementType.DOPPLER_KM_S,
     )
+    # two-way integration time (None or 0: one-way observables)
+    integration_time_s: Optional[float] = None
+    light_time_correction: bool = False
     stochastic_noises: Dict[str, StochasticNoise] = field(default_factory=dict)
 
     # -- DSN builtins, IAU_EARTH geodetic coordinates (the reference's
@@ -143,17 +168,38 @@ class GroundStation:
         return station_geometry(t_tdb, lat, lon, hgt, self.frame)
 
     def _one_way(self, t_tdb, rv6, types):
-        """[K, T] observables at TDB epochs t_tdb [K] of states rv6 [K, 6]."""
-        return observe(rv6, *self._geometry(t_tdb), types)
+        """[K, T] observables at TDB epochs t_tdb [K] of states rv6 [K, 6],
+        backdated by the light time if the station corrects for it."""
+        return observe(rv6, *self._geometry(t_tdb), types, lt=self.light_time_correction)
+
+    def two_way_fn(self, types: Optional[Sequence[str]] = None):
+        """`h2(t_tdb [K], rv6_t [K, 6], rv6_tm [K, 6]) -> [K, T]`: the
+        two-way observable, the average of the one-way values at the end
+        (t) and the start (t - T_int) of the integration interval."""
+        types = tuple(types or self.measurement_types)
+        t_int = float(self.integration_time_s or 0.0)
+
+        def h2(t, rv6_t, rv6_tm):
+            v1 = self._one_way(t, rv6_t, types)
+            v0 = self._one_way(t - t_int, rv6_tm, types)
+            return 0.5 * (v0 + v1)
+
+        return h2
 
     def batch_values(self, ts_tdb_s, ys6, types: Optional[Sequence[str]] = None, *,
                      device="cuda"):
-        """Noiseless observations and elevations over a strand, computed on
-        `device`: numpy (values [K, T], elevation_deg [K])."""
+        """Noiseless one-way observations (light time as the station says)
+        and elevations (without it) over a strand, computed on `device`:
+        numpy (values [K, T], elevation_deg [K])."""
         types = tuple(types or self.measurement_types)
         t, y = _on(ts_tdb_s, ys6, device)
-        out = self._one_way(t, y, types + (MeasurementType.ELEVATION_DEG,)).cpu().numpy()
-        return out[:, :-1], out[:, -1]
+        geo = self._geometry(t)
+        if not self.light_time_correction:
+            out = observe(y, *geo, types + (MeasurementType.ELEVATION_DEG,)).cpu().numpy()
+            return out[:, :-1], out[:, -1]
+        vals = observe(y, *geo, types, lt=True).cpu().numpy()
+        el = observe(y, *geo, (MeasurementType.ELEVATION_DEG,)).cpu().numpy()
+        return vals, el[:, 0]
 
     def batch_azel(self, ts_tdb_s, ys6, *, device="cuda"):
         """(azimuth_deg [K], elevation_deg [K]) over a sample grid, computed

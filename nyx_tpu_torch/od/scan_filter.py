@@ -1,10 +1,10 @@
-"""Batched orbit determination: the staged CKF of nyx_tpu/od/scan_filter.py.
+"""Batched orbit determination: the staged filters of nyx_tpu/od/scan_filter.py.
 
-Torch port of `ScanKalmanOD` with `prop_mode="batch"`, `variant="ckf"` and
-one pass, over ground stations. A classical Kalman filter linearizes about
-a nominal trajectory that does not depend on the measurements, so the
-reference (`_build_batch`, scan_filter.py:699-1292) splits one arc into
-four stages, and so does the port, on the filter's device:
+Torch port of `ScanKalmanOD` with `prop_mode="batch"`, over ground
+stations. A classical Kalman filter linearizes about a nominal trajectory
+that does not depend on the measurements, so the reference
+(`_build_batch`, scan_filter.py:699-1292) splits one arc into four stages,
+and so does the port, on the filter's device:
 
 - s1: the nominal from the initial estimate, one lane of adaptive RK with
   every accepted step captured (steps no longer than `max_gap_s`), and
@@ -13,26 +13,39 @@ four stages, and so does the port, on the filter's device:
   interpolation of the nodes, then every gap's STM at once: one fixed RK
   step of the [M, 90] state-and-STM EOM over each row's gap;
 - s3: each row's computed observation and its partials H (forward mode
-  over the state), the prefit z = observed - computed, R from the
+  over the state; a two-way row averages the one-way values at t and at
+  t - T_int, the state there interpolated from the nodes, see
+  `observe_rows`), the prefit z = observed - computed, R from the
   stations' noise, and the SNC process noise Q;
 - s4: the sequential Joseph update with Cholesky whitening and the sigma
   gate, 9x9 algebra row by row, at float64; or at float32 after scaling
   each state lane by 1/sqrt(P0_ii), in square-root form (see
   `filter_scan_f32`).
 
+`variant="ckf"` runs the four stages once over the whole arc, or, with
+`iterations` > 1, relinearizes between passes by a Gauss-Newton
+correction of the initial state (`_gn_dev0`). `variant="ekf"` is the
+segmented reference-update filter (`_process_arc_ekf`): the arc is cut
+into `segment_rows`-row segments, each runs the four stages, and the
+estimate and covariance of a segment's last row start the next segment's
+nominal. `predict_for` maps a covariance over a uniform grid through the
+same stages.
+
 The reference's `lax.scan` over rows becomes a host loop that queues the
 rows' small tensor operations without a host round trip: factorizations
 report failure through `cholesky_ex`, checked once after the loop. Each
 stage ends with one synchronization so its wall can be read
 (`stage_walls_s`); stage 1's also tells whether its capture buffer
-saturated, in which case the buffer doubles and stage 1 reruns.
+saturated, in which case the buffer doubles and the pass (for the EKF,
+the whole arc) reruns.
 
-Not ported yet: variant="ekf" (the segmented reference-update filter),
-Gauss-Newton iterations, the associative-scan filter, prop_mode "fixed"
-and "adaptive", estimated measurement biases, interlink devices,
-cross-body station offsets, two-way devices and light time, `predict_for`,
-`process_arc_batch` and parquet export. The reference's ahead-of-time
-compile cache and compiler options are TPU tooling with no counterpart.
+Not ported yet: the associative-scan filter (`filter_mode="parallel"`),
+prop_mode "fixed" and "adaptive", estimated measurement biases, interlink
+devices, cross-body station offsets, `process_arc_batch` and parquet
+export. The reference's ahead-of-time compile cache, compiler options and
+the EKF's padding of every segment to one row count (which only lets the
+segments share one compiled shape; a padded row is a masked update over a
+zero gap) are TPU tooling with no counterpart.
 """
 
 from __future__ import annotations
@@ -51,7 +64,7 @@ from ..dynamics.orbital import OrbitalDynamics
 from ..dynamics.spacecraft_dyn import SpacecraftDynamics
 from ..errors import ConfigError, PropagationError
 from ..propagators import integrator
-from ..time import Epoch
+from ..time import Duration, Epoch
 from .ground_station import GroundStation, observe, station_geometry
 from .msr import TrackingDataArc
 
@@ -115,6 +128,51 @@ def interp_quintic(ts_n, ys_n, acc_n, tq):
     v = d00 * r0 / hh + d10 * v0 + d20 * hh * a0 + d01 * r1 / hh + d11 * v1 + d21 * hh * a1
     rest0, rest1 = ys_n[i, 6:], ys_n[i + 1, 6:]
     return torch.cat([r, v, rest0 + s * (rest1 - rest0)], dim=-1)
+
+
+def observe_rows(t_tdb, rv_t, rv_tm, lat, lon, hgt, lt, tint, frame, types):
+    """Computed observations [M, T] and their partials H [M, T, 9] of M
+    rows at TDB epochs t_tdb [M], for stations given per row (lat, lon,
+    hgt [M]; lt [M], > 0 for a light-time-corrected station, or None for
+    none; tint [M], the two-way integration time, 0 for one-way).
+
+    One-way rows observe the states rv_t [M, 6] at t. With rv_tm [M, 6],
+    the states at t - tint, a two-way row's value is the average of the
+    one-way values at both ends (each with its own station geometry), and
+    its H is 0.5 (H1 + H0 Phi_back), Phi_back being I with -tint I3 in
+    block [0:3, 3:6]: the backward flow to t - tint to first order (the
+    reference's stage 3, scan_filter.py:1141-1187). Both ends and the six
+    unit tangents of position and velocity are folded into the batch axis
+    of one forward-mode call; the observables do not depend on Cr, Cd or
+    mass, so those columns of H are zero."""
+    m_rows = t_tdb.shape[0]
+    ends = 1 if rv_tm is None else 2
+    if ends == 2:
+        t_tdb = torch.cat([t_tdb, t_tdb - tint])
+        rv = torch.cat([rv_t, rv_tm])
+        lat, lon, hgt = (torch.cat([x, x]) for x in (lat, lon, hgt))
+        lt = None if lt is None else torch.cat([lt, lt])
+    else:
+        rv = rv_t
+    geo = station_geometry(t_tdb, lat, lon, hgt, frame)
+    n_rv, n = 6, ends * m_rows
+    eye = torch.eye(n_rv, dtype=rv.dtype, device=rv.device)
+    geo6 = tuple(g.repeat((n_rv,) + (1,) * (g.dim() - 1)) for g in geo)
+    lt6 = None if lt is None else lt.repeat(n_rv)
+    computed, cols = torch.func.jvp(
+        lambda x: observe(x, *geo6, types, lt=lt6),
+        (rv.repeat(n_rv, 1),), (eye.repeat_interleave(n, dim=0),))
+    computed = computed[:n]
+    h_rv = cols.reshape(n_rv, n, -1).permute(1, 2, 0)
+    if ends == 2:
+        two = (tint > 0.0)[:, None]
+        v1, v0 = computed[:m_rows], computed[m_rows:]
+        h1, h0 = h_rv[:m_rows], h_rv[m_rows:]
+        h0_back = torch.cat([h0[:, :, 0:3], h0[:, :, 3:6] - tint[:, None, None] * h0[:, :, 0:3]],
+                            dim=-1)
+        computed = torch.where(two, 0.5 * (v0 + v1), v1)
+        h_rv = torch.where(two[:, :, None], 0.5 * (h1 + h0_back), h1)
+    return computed, torch.cat([h_rv, torch.zeros_like(h_rv[:, :, :STATE_DIM - n_rv])], dim=-1)
 
 
 def filter_scan(phi, q_all, h_all, z_all, r_all, avail, p0, rej_thresh: float, gate: bool):
@@ -236,15 +294,17 @@ def filter_scan_f32(phi, q_all, h_all, z_all, r_all, avail, p0, rej_thresh: floa
 
 
 class ScanKalmanOD:
-    """The staged batched CKF over a fixed station set and type tuple, on
-    `device` (the card unless the caller asks for the CPU).
+    """The staged batched filters over a fixed station set and type tuple,
+    on `device` (the card unless the caller asks for the CPU).
 
-    `stm_jvp_degree`: stage 2 differentiates gravity fields through their
-    first `stm_jvp_degree` degrees (values keep the whole field). Rows are
-    at most `max_gap_s` apart (fillers are added) and so are the nominal's
-    nodes: the initial orbit's period / 24, within [60 s, max_step].
-    `filter_algebra`: "f64" (Joseph) or "f32" (preconditioned square-root
-    form, see filter_scan_f32).
+    `variant`: "ckf" (one linearization, or `iterations` Gauss-Newton
+    passes) or "ekf" (the segmented reference-update filter, a fold every
+    `segment_rows` rows). `stm_jvp_degree`: stage 2 differentiates
+    gravity fields through their first `stm_jvp_degree` degrees (values
+    keep the whole field). Rows are at most `max_gap_s` apart (fillers are
+    added) and so are the nominal's nodes: by default the initial orbit's
+    period / 24, within [60 s, max_step]. `filter_algebra`: "f64" (Joseph)
+    or "f32" (preconditioned square-root form, see filter_scan_f32).
     """
 
     def __init__(
@@ -256,13 +316,16 @@ class ScanKalmanOD:
         process_noise=None,
         resid_rejection_sigmas: Optional[float] = None,
         almanac=None,
+        max_gap_s: Optional[float] = None,
         stm_jvp_degree: Optional[int] = None,
+        iterations: int = 1,
+        segment_rows: int = 32,
         filter_algebra: str = "f64",
         *,
         device="cuda",
     ):
-        if variant != "ckf":
-            raise ConfigError(f"variant {variant!r} is not ported yet: the port runs the CKF")
+        if variant not in ("ckf", "ekf"):
+            raise ConfigError(f"variant must be 'ckf' or 'ekf', got {variant!r}")
         if filter_algebra not in ("f64", "f32"):
             raise ConfigError("filter_algebra must be 'f64' or 'f32'")
         if not devices or not all(isinstance(d, GroundStation) for d in devices):
@@ -281,16 +344,26 @@ class ScanKalmanOD:
         self.resid_rejection_sigmas = resid_rejection_sigmas
         self.almanac = almanac
         self.stm_jvp_degree = stm_jvp_degree
+        self.iterations = max(1, int(iterations))
+        self.segment_rows = int(segment_rows)
         self.filter_algebra = filter_algebra
         self.device = torch.device(device)
-        # the longest row gap and nominal step, from the orbit's period
-        self.max_gap_s = None
+        # the longest row gap and nominal step: the caller's, or from the
+        # initial orbit's period at each process_arc
+        self._max_gap_user = max_gap_s
+        self.max_gap_s = None if max_gap_s is None else float(max_gap_s)
         self._dyn_stm = self._stm_dynamics(prop.dynamics)
         self.station_frame = devices[0].frame
         f64 = dict(dtype=torch.float64, device=self.device)
         self._lat = torch.tensor([d.latitude_deg for d in devices], **f64)
         self._lon = torch.tensor([d.longitude_deg for d in devices], **f64)
         self._hgt = torch.tensor([d.height_km for d in devices], **f64)
+        lt = [1.0 if d.light_time_correction else 0.0 for d in devices]
+        self._lt = torch.tensor(lt, **f64) if any(lt) else None
+        # two-way integration times (0 for one-way stations)
+        self._tint_np = np.array([float(d.integration_time_s or 0.0) for d in devices])
+        self._tint = torch.tensor(self._tint_np, **f64)
+        self._any_two_way = bool((self._tint_np > 0.0).any())
         rvar = np.full((len(devices), len(self.types)), MASKED_R)
         for i, d in enumerate(devices):
             for j, t in enumerate(self.types):
@@ -300,7 +373,9 @@ class ScanKalmanOD:
         self._rvar = torch.tensor(rvar, **f64)
         self._kcap_grow = 1
         self._last_k_cap = 0
-        # wall seconds of each stage of the last process_arc
+        # wall seconds of each stage of the last process_arc (summed over
+        # its passes and segments), its segment count and its stage-1
+        # integrator iterations
         self.stage_walls_s = {}
 
     def _stm_dynamics(self, dyn):
@@ -398,13 +473,63 @@ class ScanKalmanOD:
         return (np.asarray(rows_t), np.asarray(rows_trk, dtype=np.int64), np.stack(rows_obs),
                 np.stack(rows_avail), np.asarray(real))
 
+    def _layout(self, initial_estimate, arc: TrackingDataArc):
+        """`_prepare` after setting max_gap_s: the caller's, or the initial
+        orbit's period / 24 within [60 s, max_step] (nodes that close keep
+        the quintic interpolation of the nominal far below the measurement
+        noise)."""
+        if self._max_gap_user is None:
+            orbit = initial_estimate.nominal.orbit
+            period = 2.0 * np.pi * np.sqrt(max(float(orbit.sma_km), 1.0) ** 3
+                                           / orbit.frame.mu_km3_s2)
+            self.max_gap_s = float(np.clip(period / 24.0, 60.0, self.prop.opts.max_step_s))
+        return self._prepare(arc, initial_estimate.epoch)
+
+    def _k_cap(self, span: float) -> int:
+        """Capture room for a nominal over `span` seconds: 4 nodes per
+        max_gap_s with margin, doubled after each saturated run (which
+        keeps for later calls)."""
+        node_hint = min(self.max_gap_s, self.prop.opts.max_step_s) / 4.0
+        self._last_k_cap = (int(span / max(node_hint, 1.0)) + 64) * self._kcap_grow
+        return self._last_k_cap
+
+    def _segments(self, t_rel: np.ndarray):
+        """The EKF's segments as [(b0, b1, t_prev, span)]: rows b0 to b1 - 1,
+        their times measured from t_prev (the previous segment's last row,
+        0 for the first) and the last of them, span. Every s_rows rows,
+        each boundary shifted left (by at most s_rows // 2, keeping more
+        than two rows) while the row after it is less than the longest
+        two-way integration time after the row before it. A segment's
+        first row looks its t - T_int state up in the segment's own
+        nominal, which starts at the previous row: a boundary closer than
+        T_int would clamp that lookup to the segment start, tens of
+        seconds late, a ~50 km range error at orbital speed (the
+        reference's _ekf_setup, scan_filter.py:1774-1796)."""
+        m_rows = len(t_rel)
+        s_rows = max(2, min(self.segment_rows, m_rows))
+        tint_max = float(self._tint_np.max())
+        bounds, b0 = [], 0
+        while b0 < m_rows:
+            b1 = min(b0 + s_rows, m_rows)
+            if tint_max > 0.0 and b1 < m_rows:
+                shift = 0
+                while (shift < s_rows // 2 and b1 - b0 > 2
+                       and t_rel[b1] - t_rel[b1 - 1] < tint_max - 1e-9):
+                    b1 -= 1
+                    shift += 1
+            bounds.append((b0, b1))
+            b0 = b1
+        prev = [0.0] + [float(t_rel[b1 - 1]) for _, b1 in bounds[:-1]]
+        return [(b0, b1, p, float(t_rel[b1 - 1]) - p) for (b0, b1), p in zip(bounds, prev)]
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def _stage1(self, y0, arc_span, k_cap, ctx, sc_params):
-        """The nominal with dense capture: (node times [K], states [K, 9],
-        accelerations [K, 3]), or None when the capture buffer saturated."""
+        """The nominal with dense capture: ((node times [K], states [K, 9],
+        accelerations [K, 3]), integrator iterations), or None when the
+        capture buffer saturated."""
         dyn = self.prop.dynamics
         eom9 = dyn.make_eom()
         opts = self.prop.opts
@@ -423,7 +548,7 @@ class ScanKalmanOD:
                           res.traj_t[0, : n_valid - 1]])
         ys_n = torch.cat([y0[None, :], res.traj_y[0, : n_valid - 1]])
         acc_n = eom9(ts_n, ys_n, ctx, sc_params)[:, 3:6]
-        return ts_n, ys_n, acc_n
+        return (ts_n, ys_n, acc_n), res.iterations
 
     def _stage2(self, t_rel, nodes, ctx, sc_params):
         """(nominal at the rows [M, 9], STMs over the gaps [M, 9, 9], gaps [M])."""
@@ -441,34 +566,71 @@ class ScanKalmanOD:
         y90 = self._dyn_stm.make_finally()(t_prev + dt, y90 + inc, ctx, sc_params)
         return y90[:, :STATE_DIM], y90[:, STATE_DIM:].reshape(m_rows, STATE_DIM, STATE_DIM), dt
 
-    def _stage3(self, t_rel, trk, obs, avail, y_bar, dt, epoch0: Epoch, t0_rel: float):
+    def _stage3(self, t_rel, trk, obs, avail, y_bar, dt, nodes, epoch0: Epoch, t0_rel: float):
         """(H [M, T, 9], z [M, T], R [M, T], Q [M, 9, 9]); t0_rel is the
-        first row's time, the anchor of decaying SNCs without a start."""
-        m_rows = t_rel.shape[0]
-        t_tdb = epoch0.to_tdb_seconds() + t_rel
-        geo = station_geometry(t_tdb, self._lat[trk], self._lon[trk], self._hgt[trk],
-                               self.station_frame)
-        # H by forward mode over position and velocity, the six unit
-        # tangents folded into the batch axis; the observables do not
-        # depend on Cr, Cd or mass, so those columns of H are zero
-        n_rv = 6
-        eye = torch.eye(n_rv, dtype=torch.float64, device=t_rel.device)
-        geo6 = tuple(g.repeat((n_rv,) + (1,) * (g.dim() - 1)) for g in geo)
-        computed, cols = torch.func.jvp(
-            lambda rv: observe(rv, *geo6, self.types),
-            (y_bar[:, :n_rv].repeat(n_rv, 1),), (eye.repeat_interleave(m_rows, dim=0),))
-        computed = computed[:m_rows]
-        h_rv = cols.reshape(n_rv, m_rows, -1).permute(1, 2, 0)
-        h_all = torch.cat([h_rv, torch.zeros_like(h_rv[:, :, :STATE_DIM - n_rv])], dim=-1)
+        first row's time, the anchor of decaying SNCs without a start. A
+        two-way row's state at t - T_int comes from the nominal's nodes, at
+        the nominal's start if that is later."""
+        y_tm = None
+        if self._any_two_way:
+            y_tm = interp_quintic(*nodes, torch.clamp(t_rel - self._tint[trk], min=0.0))[:, :6]
+        computed, h_all = observe_rows(
+            epoch0.to_tdb_seconds() + t_rel, y_bar[:, :6], y_tm, self._lat[trk], self._lon[trk],
+            self._hgt[trk], None if self._lt is None else self._lt[trk], self._tint[trk],
+            self.station_frame, self.types)
         z_all = torch.where(avail, obs - computed, torch.zeros_like(obs))
         r_all = torch.where(avail, self._rvar[trk], torch.full_like(obs, MASKED_R))
         t_tai = epoch0.to_tai_seconds() + t_rel
         q_all = self._snc_q(dt, y_bar, t_tai, epoch0.to_tai_seconds() + t0_rel)
         return h_all, z_all, r_all, q_all
 
+    def _run(self, y0, p0, rows, epoch0: Epoch, t0_rel: float, span: float, k_cap: int,
+             thresh: float, gate: bool, sc_params, walls):
+        """The four stages over `rows` (device (t_rel, trk, obs, avail),
+        times relative to `epoch0`, the start of y0 and p0), their walls
+        added to `walls`. Returns the device outputs (estimates, covariances,
+        prefit, postfit, ratios, rejections) and the Gauss-Newton inputs,
+        or None when stage 1's capture buffer saturated."""
+        t_rel, trk, obs, avail = rows
+        ctx = self.prop.dynamics.build_context(epoch0, span, self.almanac, device=self.device)
+        t0 = time.perf_counter()
+        s1 = self._stage1(y0, span, k_cap, ctx, sc_params)
+        self._sync()
+        walls["s1"] += time.perf_counter() - t0
+        if s1 is None:
+            return None
+        nodes, iters = s1
+        walls["s1_iterations"] += iters
+
+        t0 = time.perf_counter()
+        y_bar, phi, dt = self._stage2(t_rel, nodes, ctx, sc_params)
+        self._sync()
+        walls["s2"] += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        h_all, z_all, r_all, q_all = self._stage3(t_rel, trk, obs, avail, y_bar, dt, nodes,
+                                                   epoch0, t0_rel)
+        self._sync()
+        walls["s3"] += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        algebra = filter_scan_f32 if self.filter_algebra == "f32" else filter_scan
+        dev_all, p_all, prefit, postfit, ratio, rejected = algebra(
+            phi, q_all, h_all, z_all, r_all, avail, p0, thresh, gate)
+        self._sync()
+        walls["s4"] += time.perf_counter() - t0
+        aux = dict(phi=phi, h_all=h_all, z_all=z_all, r_all=r_all, avail=avail)
+        return (y_bar + dev_all, p_all, prefit, postfit, ratio, rejected), aux
+
     def process_arc(self, initial_estimate, arc: TrackingDataArc) -> ScanODResult:
         """Filter the arc from `initial_estimate` (a KfEstimate whose epoch
-        precedes the first measurement)."""
+        precedes the first measurement).
+
+        The CKF with `iterations` > 1 relinearizes between passes: the
+        Gauss-Newton initial-state correction `_gn_dev0` moves the nominal's
+        start and the stages rerun. Intermediate passes run with the gate
+        off; only the last applies it. `variant="ekf"` runs the segmented
+        filter instead (`_process_arc_ekf`)."""
         gate = self.resid_rejection_sigmas is not None
         if arc.force_reject and not gate:
             raise ConfigError("resid-vs-ref arcs (force_reject) need a filter built "
@@ -477,62 +639,131 @@ class ScanKalmanOD:
         # the pure propagation
         thresh = -math.inf if arc.force_reject else (
             self.resid_rejection_sigmas if gate else math.inf)
-        epoch0 = initial_estimate.epoch
-        nominal = initial_estimate.nominal
-        # nodes T/24 apart keep the quintic interpolation of the nominal far
-        # below the measurement noise
-        period = 2.0 * np.pi * np.sqrt(max(float(nominal.orbit.sma_km), 1.0) ** 3
-                                       / nominal.orbit.frame.mu_km3_s2)
-        self.max_gap_s = float(np.clip(period / 24.0, 60.0, self.prop.opts.max_step_s))
-        t_np, trk_np, obs_np, avail_np, real = self._prepare(arc, epoch0)
-        arc_span = float(t_np[-1])
+        t_np, trk_np, obs_np, avail_np, real = self._layout(initial_estimate, arc)
         f64 = dict(dtype=torch.float64, device=self.device)
-        t_rel = torch.tensor(t_np, **f64)
-        trk = torch.tensor(trk_np, device=self.device)
-        obs = torch.tensor(obs_np, **f64)
-        avail = torch.tensor(avail_np, device=self.device)
-        y0 = torch.tensor(nominal.to_vector(), **f64)
-        p0 = torch.tensor(np.asarray(initial_estimate.covar), **f64)
-        ctx = self.prop.dynamics.build_context(epoch0, arc_span, self.almanac, device=self.device)
+        rows = (torch.tensor(t_np, **f64), torch.tensor(trk_np, device=self.device),
+                torch.tensor(obs_np, **f64), torch.tensor(avail_np, device=self.device))
+        nominal, epoch0 = initial_estimate.nominal, initial_estimate.epoch
         sc_params = dict(dry_mass_kg=nominal.dry_mass_kg, srp_area_m2=nominal.srp_area_m2,
                          drag_area_m2=nominal.drag_area_m2)
-
-        walls = {}
-        t0 = time.perf_counter()
-        for _ in range(CAPTURE_ATTEMPTS):
-            # capture room for 4 nodes per max_gap_s with margin, doubled
-            # after each saturated run (which keeps for later calls)
-            node_hint = min(self.max_gap_s, self.prop.opts.max_step_s) / 4.0
-            k_cap = (int(arc_span / max(node_hint, 1.0)) + 64) * self._kcap_grow
-            self._last_k_cap = k_cap
-            nodes = self._stage1(y0, arc_span, k_cap, ctx, sc_params)
-            if nodes is not None:
-                break
-            self._kcap_grow *= 2
+        y0 = torch.tensor(nominal.to_vector(), **f64)
+        p0 = torch.tensor(np.asarray(initial_estimate.covar), **f64)
+        walls = dict(s1=0.0, s2=0.0, s3=0.0, s4=0.0, segments=1, s1_iterations=0)
+        if self.variant == "ekf":
+            out = self._process_arc_ekf(y0, p0, rows, t_np, epoch0, thresh, gate, sc_params,
+                                        walls)
         else:
-            raise PropagationError(
-                f"scan-filter nominal capture saturated ({self._last_k_cap} nodes) after "
-                f"{CAPTURE_ATTEMPTS} attempts")
-        self._sync()
-        walls["s1"] = time.perf_counter() - t0
-
+            n_iter = 1 if arc.force_reject else self.iterations
+            span = float(t_np[-1])
+            for it in range(n_iter):
+                final = it == n_iter - 1
+                out, aux = self._run_growing(
+                    lambda: self._run(y0, p0, rows, epoch0, float(t_np[0]), span,
+                                      self._k_cap(span), thresh if final else math.inf, gate,
+                                      sc_params, walls))
+                if not final:
+                    y0 = y0 + torch.tensor(self._gn_dev0(aux, p0), **f64)
         t0 = time.perf_counter()
-        y_bar, phi, dt = self._stage2(t_rel, nodes, ctx, sc_params)
-        self._sync()
-        walls["s2"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        h_all, z_all, r_all, q_all = self._stage3(t_rel, trk, obs, avail, y_bar, dt, epoch0,
-                                                   float(t_np[0]))
-        self._sync()
-        walls["s3"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        algebra = filter_scan_f32 if self.filter_algebra == "f32" else filter_scan
-        dev_all, p_all, prefit, postfit, ratio, rejected = algebra(
-            phi, q_all, h_all, z_all, r_all, avail, p0, thresh, gate)
-        y_est = y_bar + dev_all
-        out = [x.cpu().numpy()[real] for x in (y_est, p_all, prefit, postfit, ratio, rejected)]
-        walls["s4"] = time.perf_counter() - t0
+        host = [x.cpu().numpy()[real] for x in out]
+        walls["s4"] += time.perf_counter() - t0
         self.stage_walls_s = walls
-        return ScanODResult(np.asarray(arc.epochs_tai_s), *out, types=self.types)
+        return ScanODResult(np.asarray(arc.epochs_tai_s), *host, types=self.types)
+
+    def _run_growing(self, run):
+        """`run()` until stage 1's capture buffer suffices, doubling it
+        after each saturated attempt."""
+        for _ in range(CAPTURE_ATTEMPTS):
+            out = run()
+            if out is not None:
+                return out
+            self._kcap_grow *= 2
+        raise PropagationError(
+            f"scan-filter nominal capture saturated ({self._last_k_cap} nodes) after "
+            f"{CAPTURE_ATTEMPTS} attempts")
+
+    def _process_arc_ekf(self, y0, p0, rows, t_np, epoch0: Epoch, thresh, gate, sc_params,
+                         walls):
+        """Segmented reference-update filtering (the reference's
+        _process_arc_ekf, scan_filter.py:1644-1733): the rows are cut into
+        `_segments`, each runs the four stages with its times measured from
+        the previous segment's last row (its epoch, its own dynamics
+        context), and the estimate and covariance of a segment's last row
+        become the next segment's y0 and p0, on the device. Deviations then
+        stay within one segment's drift, which keeps the linearization, and
+        the gate, honest on day-long arcs from a dispersed start. A
+        saturated capture buffer in any segment doubles it and reruns the
+        whole arc. Returns the device outputs of every row."""
+        segments = self._segments(t_np)
+        walls["segments"] = len(segments)
+
+        def run_arc():
+            k_cap = self._k_cap(max(seg[3] for seg in segments))
+            y, p, outs = y0, p0, []
+            for b0, b1, t_prev, span in segments:
+                seg_rows = (rows[0][b0:b1] - t_prev,) + tuple(x[b0:b1] for x in rows[1:])
+                res = self._run(y, p, seg_rows, epoch0 + t_prev, float(t_np[b0] - t_prev), span,
+                                k_cap, thresh, gate, sc_params, walls)
+                if res is None:
+                    return None
+                out, _ = res
+                outs.append(out)
+                y, p = out[0][-1], out[1][-1]
+            return [torch.cat([o[i] for o in outs]) for i in range(6)]
+
+        return self._run_growing(run_arc)
+
+    def _gn_dev0(self, aux, p0):
+        """Gauss-Newton initial-state correction from one filter pass (the
+        reference's _gn_dev0, scan_filter.py:1837-1884, host-side 9x9
+        numpy): every row's partials mapped back to the epoch through the
+        forward STM chain (H~_k = H_k Phi(t0 -> t_k)), and the
+        prior-regularized normal equations solved at t0. Information
+        accumulates forward, so nothing is amplified through an inverse
+        STM; zero-prior-variance lanes are held fixed."""
+        d = STATE_DIM
+        phi = _host(aux["phi"])
+        h = _host(aux["h_all"])[:, :, :d]
+        z = _host(aux["z_all"])
+        r = _host(aux["r_all"])
+        avail = _host(aux["avail"])
+        a_mat = np.zeros((d, d))
+        b_vec = np.zeros(d)
+        phi0k = np.eye(d)
+        for k in range(phi.shape[0]):
+            phi0k = phi[k] @ phi0k
+            if not avail[k].any():
+                continue
+            hk = h[k] @ phi0k  # [T, d]
+            w = np.where(avail[k], 1.0 / r[k], 0.0)
+            hw = hk * w[:, None]
+            a_mat += hw.T @ hk
+            b_vec += hw.T @ z[k]
+        p0h = _host(p0)[:d, :d]
+        idx = np.where(np.diag(p0h) > 1e-30)[0]
+        a_sub = a_mat[np.ix_(idx, idx)] + np.linalg.inv(p0h[np.ix_(idx, idx)])
+        dx = np.zeros(d)
+        dx[idx] = np.linalg.solve(a_sub, b_vec[idx])
+        return dx
+
+    def predict_for(self, initial_estimate, duration, step=60.0) -> ScanODResult:
+        """Covariance mapping: time updates only, over a uniform `step`
+        grid spanning `duration` (seconds or Durations), as an all-NaN arc
+        through process_arc (the reference's predict_for,
+        scan_filter.py:1886-1913)."""
+        dur_s = duration.to_seconds() if isinstance(duration, Duration) else float(duration)
+        step_s = step.to_seconds() if isinstance(step, Duration) else float(step)
+        m = max(1, int(round(dur_s / step_s)))
+        epoch0 = initial_estimate.epoch
+        t_grid = np.arange(1, m + 1) * step_s
+        arc = TrackingDataArc(
+            trackers=(self.devices[0].name,),
+            types=self.types,
+            epochs_tai_s=epoch0.to_tai_seconds() + t_grid,
+            tracker_idx=np.zeros(m, dtype=np.int64),
+            values=np.full((m, len(self.types)), np.nan),
+        )
+        return self.process_arc(initial_estimate, arc)
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

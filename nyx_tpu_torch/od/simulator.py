@@ -4,10 +4,13 @@ Torch port of nyx_tpu/od/simulator.py:31-282 for continuous tracking.
 Visibility samples the truth trajectory at each device's cadence and
 evaluates the device's elevation over all the samples in one batched call
 on the simulator's device; strand extraction, the eager and greedy
-hand-off and the noise stay on the host. Noise comes from one `numpy.random.default_rng(seed)` generator,
-drawn in the reference's order, so the same schedule gives the same noise.
-Intermittent cadence, strand alignment, manual strands, timestamp noise,
-terrain masks and two-way averaging are not ported yet.
+hand-off and the noise stay on the host. Noise comes from one
+`numpy.random.default_rng(seed)` generator, drawn in the reference's
+order, so the same schedule gives the same noise. A two-way device's
+values are the average of its one-way values at t and t - T_int, with the
+noise scaled by 1/sqrt(2) (the reference's simulator.py:241-258).
+Intermittent cadence, strand alignment, manual strands, timestamp noise
+and terrain masks are not ported yet.
 """
 
 from __future__ import annotations
@@ -136,14 +139,26 @@ class TrackingArcSim:
             # one batched device call for the whole strand, then host-side
             # noise in deterministic per-epoch order
             vals, els = dev.batch_values(t0_tdb + ts[sl], ys[sl], device=self.device)
+            noise_scale, skip_before = 1.0, -np.inf
+            if dev.integration_time_s:
+                # two-way: the average with the values at t - T_int, the
+                # state there clamped to the trajectory's start, whose
+                # first T_int seconds give no measurement
+                t_int = float(dev.integration_time_s)
+                t_first = float(self.traj.ts[0])
+                ts_sl = ts[sl]
+                ys0 = np.stack([self.traj.interpolate(max(t - t_int, t_first))[:6] for t in ts_sl])
+                vals0, _ = dev.batch_values(t0_tdb + ts_sl - t_int, ys0, device=self.device)
+                vals = 0.5 * (vals + vals0)
+                noise_scale, skip_before = 1.0 / np.sqrt(2.0), t_first + t_int
             nstate = noise_states[strand.device]
             for k, i in enumerate(range(strand.start_idx, strand.end_idx + 1)):
-                if els[k] < dev.elevation_mask_deg:
+                if els[k] < dev.elevation_mask_deg or ts[i] < skip_before:
                     continue
                 epoch = epoch0 + float(ts[i])
                 t_tai = epoch.to_tai_seconds()
                 data = {
-                    mtype: float(vals[k, j]) + nstate.sample(mtype, t_tai, rng)
+                    mtype: float(vals[k, j]) + noise_scale * nstate.sample(mtype, t_tai, rng)
                     for j, mtype in enumerate(dev.measurement_types)
                 }
                 measurements.append(Measurement(dev.name, epoch, data))

@@ -48,6 +48,9 @@ class PropResult(NamedTuple):
     traj_t: Optional[torch.Tensor] = None
     traj_y: Optional[torch.Tensor] = None
     traj_len: Optional[torch.Tensor] = None
+    # iterations of the host loop (attempted steps of the slowest lane,
+    # rounded up to CHECK_EVERY)
+    iterations: int = 0
 
 
 def _rk_stages(eom, a, b, b_star, c, t, y, h):
@@ -135,9 +138,11 @@ def propagate(
         traj_y = torch.zeros(B, K + 1, N, **f64)
         traj_len = torch.zeros(B, **i32)
 
+    n_iter = 0
     for it in range(options.max_iterations):
         if it % CHECK_EVERY == 0 and not bool((status == RUNNING).any()):
             break
+        n_iter = it + 1
         running = status == RUNNING
         # clamp the final step to land exactly on the stop time
         overshoot = (t + h) * sgn > t_stop * sgn
@@ -202,7 +207,8 @@ def propagate(
             traj_len = torch.clamp(traj_len + want.to(torch.int32), max=K)
 
     res = PropResult(
-        t=t, y=y, status=status, n_accepted=n_acc, n_rejected=n_rej, error=error, step=h
+        t=t, y=y, status=status, n_accepted=n_acc, n_rejected=n_rej, error=error, step=h,
+        iterations=n_iter,
     )
     if K > 0:
         res = res._replace(traj_t=traj_t[:, :K], traj_y=traj_y[:, :K], traj_len=traj_len)

@@ -439,7 +439,8 @@ def test_od_slice_recovers_truth_on_cpu():
     arc = sim.generate_measurements()
     od = ScanKalmanOD(prop, stations, types=TYPES, stm_jvp_degree=4, device="cpu")
     sol = od.process_arc(_estimate(P, truth), arc)
-    assert set(od.stage_walls_s) == {"s1", "s2", "s3", "s4"}
+    assert set(od.stage_walls_s) == {"s1", "s2", "s3", "s4", "segments", "s1_iterations"}
+    assert od.stage_walls_s["segments"] == 1 and od.stage_walls_s["s1_iterations"] % 16 == 0
     assert np.isfinite(sol.y_est).all() and sol.y_est.shape == (len(arc), 9)
     final = traj.at(P.Epoch.from_tai_seconds_j2000(sol.epochs_tai_s[-1])).to_vector()
     err = np.linalg.norm(sol.final_state()[:3] - final[:3])
