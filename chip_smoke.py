@@ -15,11 +15,13 @@ raises and exits non-zero:
    q_lo 0 and 3, a 12x6 rectangular field, 70x70 JGM3 split at q_lo 0 and
    3, and JGM3 extended with Kaula-rule coefficients to 120x120 and
    160x160, whose tables stream; each at B = 10,000, a ragged 37 and the
-   single lane of the OD leg's propagations), and
+   single lane of the OD leg's propagations; and phase 6d's 8x8 split field
+   at q_lo 0 on GEO radii, at its B = 25 and 4), and
    time the kernel on the card at B = 10,000 beside its bound, and the twin
    and the parent's kernel at 21x21;
 4. run the main path, after a 120 s warm-up arc, and count kernel launches;
-5. rerun 64 of its lanes with the gravity twin forced and compare finals;
+5. rerun 64 of its lanes over the day's first 6 h through the kernel and
+   with the gravity twin forced, and compare finals;
 6. the same ensemble with 70x70 JGM3 split gravity over one hour, through
    the kernel, and its 64-lane twin rerun;
 6b. the bench's OD leg (bench.py:279-404) through the port: a one-day
@@ -27,17 +29,26 @@ raises and exits non-zero:
    60 s by `TrackingArcSim`, and `ScanKalmanOD` (CKF, stm_jvp_degree 8,
    f32 algebra) over the whole arc after a 2-hour warm-up arc, timed, with
    its kernel launches counted; the bench's 100 m guard against the
-   truth; the same arc with the gravity twin forced (every row within
-   1e-3 km) and with f64 algebra (TestF32FilterAlgebra's bounds);
+   truth; the warm-up arc again with the gravity twin forced (every row
+   within 1e-3 km of the warm-up's) and with f64 algebra
+   (TestF32FilterAlgebra's bounds);
 6c. the bench's flagship OD leg (bench.py:407-434) on 6b's truth: the
    same stations two-way (60 s integration), simulated by
    `TrackingArcSim`, and the segmented EKF (`variant="ekf"`, SNC, 3-sigma
    gate, stm_jvp_degree 8, f32 algebra) from a dispersed start, after a
    2-hour warm-up arc, timed over the whole arc with its kernel launches
-   counted; the bench's 100 m guard; the arc's first 6 h through the
-   kernel, the gravity twin (every row within 1e-3 km) and f64 algebra
-   (TestF32FilterAlgebra's bounds, the same rejections);
-7. print the summary.
+   counted; the bench's 100 m guard; the warm-up arc again through the
+   gravity twin (every row within 1e-3 km of the warm-up's) and with f64
+   algebra (TestF32FilterAlgebra's bounds, the same rejections);
+6d. Config 4 of BASELINE.md, the GEO station-keeping Monte Carlo
+   (examples/03_geo_analysis.py:248-350): 25 lanes, 8x8 JGM3 split,
+   Sun and Moon point masses, SRP with an Earth shadow, a 0.472 N /
+   4,435 s thruster under the eclipse-gated Ruggiero law, RK89 at 1e-10
+   with a 30 s floor, over one day of its 30, after a 600 s warm-up, with
+   its kernel launches counted and one EOM call's CUDA launches profiled;
+   then 4 of its lanes over the first 6 h through the kernel and the twin
+   (final positions within 1e-6 km, the same final modes);
+7. print the command time and the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
 line `{"ok": true, "device": {...}}`. In the summary `ms` is the card's
@@ -59,6 +70,8 @@ import subprocess
 import sys
 import time
 import warnings
+
+_T_START = time.perf_counter()
 from pathlib import Path
 
 import numpy as np
@@ -73,6 +86,26 @@ KERNEL_REL_TOL = 2e-5
 # Split vs full-f64 envelope over one day (tests/test_dynamics.py:304), km;
 # also the OD leg's bound between its kernel and twin runs, row by row.
 TWIN_FINAL_TOL_KM = 1e-3
+# Config 2's twin rerun holds the kernel to the twin over this prefix of the day.
+TWIN_PREFIX_S = 6 * 3600.0
+# Config 4's station keeping (examples/03_geo_analysis.py:248-350): its 25
+# lanes over one day of the 30, a NEXT-STEP-class thruster, and 4 lanes in
+# the kernel-vs-twin rerun.
+B_SK = 25
+B_SK_TWIN = 4
+SK_SECONDS = 86_400.0
+SK_THRUST_N = 0.472
+SK_ISP_S = 4435.0
+# Config 4's kernel-vs-twin bound over the 6 h prefix, km. At GEO the
+# kernel's share of the field (all but J2 and J3) is small: C22 alone moves
+# a lane ~5.6e-3 km in 6 h (0.5 * 2.4e-11 km/s^2 * 21,600 s^2), so a kernel
+# within KERNEL_REL_TOL of the twin moves it ~1e-7 km. 1e-6 km fails a
+# kernel wrong by more than ~0.02 % of that share.
+SK_TWIN_TOL_KM = 1e-6
+# Radii of the kernel-vs-twin positions: the main path's LEO, and GEO with
+# Config 4's 3 km sma spread and its ecc objective.
+LEO_RADII_KM = (6_700.0, 7_500.0)
+GEO_RADII_KM = (42_100.0, 42_230.0)
 # The bench's OD guard: final position error against the truth (bench.py:376).
 OD_GUARD_KM = 0.1
 # f32 against f64 filter algebra (tests/test_od.py:1782-1792): positions
@@ -98,10 +131,10 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _leo_body_fixed(n: int, seed: int) -> np.ndarray:
+def _body_fixed(n: int, seed: int, radii_km=LEO_RADII_KM) -> np.ndarray:
     rng = np.random.default_rng(seed)
     r = rng.normal(size=(n, 3))
-    return r / np.linalg.norm(r, axis=1, keepdims=True) * rng.uniform(6_700.0, 7_500.0, (n, 1))
+    return r / np.linalg.norm(r, axis=1, keepdims=True) * rng.uniform(*radii_km, (n, 1))
 
 
 def _time_ms(fn, calls: int = 20, window_ms: float = 200.0) -> float:
@@ -208,15 +241,18 @@ def phase_kernel_vs_twin(gp, fields, parent):
     """Kernel vs twin on the card in every case, then the kernel's times at
     B = 10,000 beside their bounds. Returns the summary's numbers."""
     max_rel = max_abs = 0.0
-    cases = [("21x21", 0), ("21x21", 3), ("12x6", 0), ("70x70", 0), ("70x70", 3),
-             ("120x120", 3), ("160x160", 3)]
-    for name, q_lo in cases:
+    leo = ((B_MAIN, 37, 1), LEO_RADII_KM)
+    cases = [("21x21", 0, leo), ("21x21", 3, leo), ("12x6", 0, leo), ("70x70", 0, leo),
+             ("70x70", 3, leo), ("120x120", 3, leo), ("160x160", 3, leo),
+             # phase 6d's field, batches and radii, at the q_lo its split field passes
+             ("8x8", 0, ((B_SK, B_SK_TWIN), GEO_RADII_KM))]
+    for name, q_lo, (batches, radii) in cases:
         h = fields[name]
         tab = h.packed_table(0, torch.float32, "cuda")
         kw = h.pines_args()
         plan = gp.pines_launch_plan(tab.shape[0], tab.shape[2])
-        for B in (B_MAIN, 37, 1):
-            r = torch.tensor(_leo_body_fixed(B, 1000 + B), dtype=torch.float32, device="cuda")
+        for B in batches:
+            r = torch.tensor(_body_fixed(B, 1000 + B, radii), dtype=torch.float32, device="cuda")
             a_k = gp.pines_accel_cuda(r, tab, q_lo, **kw)
             a_t = gp.pines_accel_torch(r, tab, q_lo, **kw)
             torch.cuda.synchronize()
@@ -233,7 +269,7 @@ def phase_kernel_vs_twin(gp, fields, parent):
                 raise RuntimeError(f"kernel disagrees with twin: rel {rel} >= {KERNEL_REL_TOL}")
             max_rel, max_abs = max(max_rel, rel), max(max_abs, abs_err)
 
-    r = torch.tensor(_leo_body_fixed(B_MAIN, 1000 + B_MAIN), dtype=torch.float32, device="cuda")
+    r = torch.tensor(_body_fixed(B_MAIN, 1000 + B_MAIN), dtype=torch.float32, device="cuda")
     out = {}
     for name in ("21x21", "70x70", "120x120"):
         h = fields[name]
@@ -274,8 +310,10 @@ def phase_kernel_vs_twin(gp, fields, parent):
 
 def run_and_rerun(mc_seed, mvn, propagator, alm, start, seconds, gp, label):
     """A B_MAIN-lane ensemble through the kernel, with its launches counted
-    from 0, then B_TWIN of its lanes through the gravity twin. Returns
-    the launches."""
+    from 0, then B_TWIN of its lanes through the gravity twin over the arc's
+    first min(seconds, TWIN_PREFIX_S), held against the ensemble's finals
+    where that is the whole arc, else against a fresh B_TWIN-lane kernel
+    run of the prefix. Returns the launches."""
     from nyx_tpu_torch.mc import MonteCarlo
 
     end = start + seconds
@@ -290,7 +328,7 @@ def run_and_rerun(mc_seed, mvn, propagator, alm, start, seconds, gp, label):
     twin_cuda_calls = gp.pines_accel_torch.cuda_calls
     _log(f"{label}: B={B_MAIN}, {seconds} s arc, wall {wall:.3f} s, "
          f"{res.n_ok / wall:.2f} traj/s, mean accepted steps {float(np.mean(res.n_accepted)):.2f}, "
-         f"mean rejected {float(np.mean(res.n_rejected)):.2f}, "
+         f"mean rejected {float(np.mean(res.n_rejected)):.2f}, iterations {res.iterations}, "
          f"n_ok/n_runs {res.n_ok}/{res.n_runs}, kernel launches {launches}, "
          f"twin CUDA calls {twin_cuda_calls}")
     if res.n_ok != res.n_runs:
@@ -303,15 +341,20 @@ def run_and_rerun(mc_seed, mvn, propagator, alm, start, seconds, gp, label):
             f"{twin_cuda_calls} twin calls on CUDA"
         )
 
+    y0 = res.y_initial[:B_TWIN]
+    twin_seconds = min(seconds, TWIN_PREFIX_S)
+    kernel = res if twin_seconds == seconds else MonteCarlo(mvn, seed=mc_seed).run_until_epoch(
+        propagator("auto"), alm, start + twin_seconds, B_TWIN, device="cuda", _y0=y0)
+    t0 = time.perf_counter()
     twin = MonteCarlo(mvn, seed=mc_seed).run_until_epoch(
-        propagator("torch"), alm, end, B_TWIN, device="cuda", _y0=res.y_initial[:B_TWIN]
+        propagator("torch"), alm, start + twin_seconds, B_TWIN, device="cuda", _y0=y0
     )
     if twin.n_ok != B_TWIN:
         raise RuntimeError(f"{label} twin rerun: {twin.n_ok}/{B_TWIN} lanes ok")
-    d_km = np.linalg.norm(twin.y_final[:, :3] - res.y_final[:B_TWIN, :3], axis=1).max()
-    _log(f"{label} twin rerun of {B_TWIN} lanes: max final position difference {d_km:.3e} km, "
-         f"mean accepted steps {float(np.mean(twin.n_accepted)):.2f} vs "
-         f"{float(np.mean(res.n_accepted[:B_TWIN])):.2f}")
+    d_km = np.linalg.norm(twin.y_final[:, :3] - kernel.y_final[:B_TWIN, :3], axis=1).max()
+    _log(f"{label} twin rerun of {B_TWIN} lanes over {twin_seconds} s ({time.perf_counter() - t0:.1f} s): "
+         f"max final position difference {d_km:.3e} km from the kernel's, mean accepted steps "
+         f"{float(np.mean(twin.n_accepted)):.2f} vs {float(np.mean(kernel.n_accepted[:B_TWIN])):.2f}")
     if not d_km < TWIN_FINAL_TOL_KM:
         raise RuntimeError(f"{label}: kernel and twin runs differ by {d_km} km >= {TWIN_FINAL_TOL_KM}")
     return launches
@@ -408,7 +451,7 @@ def phase_od(gp, stor21):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            scan.process_arc(est0, warm_arc)
+            warm = scan.process_arc(est0, warm_arc)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     syncs = sum("synchroniz" in str(w.message) for w in caught)
@@ -442,13 +485,17 @@ def phase_od(gp, stor21):
     if not err_km < OD_GUARD_KM:
         raise RuntimeError(f"OD filter diverged: {err_km * 1e3:.1f} m final error")
 
-    twin = od("torch", "f32").process_arc(est0, arc)
-    d_twin = float(np.linalg.norm(twin.y_est[:, :3] - sol.y_est[:, :3], axis=1).max())
-    _log(f"OD twin rerun: max row position difference {d_twin:.3e} km")
+    # the twin and f64 reruns take the warm-up's arc and are held to the
+    # warm-up: a whole day through the twin pays its gravity at B = 1 in
+    # every stage-1 step
+    twin = od("torch", "f32").process_arc(est0, warm_arc)
+    d_twin = float(np.linalg.norm(twin.y_est[:, :3] - warm.y_est[:, :3], axis=1).max())
+    _log(f"OD twin rerun of the first 2 h ({len(warm_arc)} rows): max row position difference "
+         f"{d_twin:.3e} km")
     if not d_twin < TWIN_FINAL_TOL_KM:
         raise RuntimeError(f"OD kernel and twin runs differ by {d_twin} km")
 
-    _f32_vs_f64("OD", sol, od("auto", "f64").process_arc(est0, arc))
+    _f32_vs_f64("OD, first 2 h,", warm, od("auto", "f64").process_arc(est0, warm_arc))
     return dict(launches=launches, rows_per_s=rate, rows=len(arc), wall=wall, truth=truth,
                 traj=traj)
 
@@ -482,7 +529,8 @@ def phase_od_flagship(gp, stor21, truth, traj):
                             resid_rejection_sigmas=3.0, stm_jvp_degree=8, filter_algebra=algebra)
 
     scan = od("auto", "f32")
-    scan.process_arc(est, _head(arc, 7200.0))  # warm-up
+    warm_arc = _head(arc, 7200.0)
+    warm = scan.process_arc(est, warm_arc)  # warm-up; the reruns below are held to it
 
     gp.pines_accel_cuda.launches = 0
     gp.pines_accel_torch.cuda_calls = 0
@@ -517,19 +565,155 @@ def phase_od_flagship(gp, stor21, truth, traj):
     if not err_km < OD_GUARD_KM:
         raise RuntimeError(f"OD flagship filter diverged: {err_km * 1e3:.1f} m final error")
 
-    # the twin and f64 reruns take the arc's first 6 h: a whole day through
-    # the twin pays its gravity at B = 1 in every stage-1 step
-    prefix = _head(arc, 6 * 3600.0)
-    sol6 = scan.process_arc(est, prefix)
-    twin = od("torch", "f32").process_arc(est, prefix)
-    d_twin = float(np.linalg.norm(twin.y_est[:, :3] - sol6.y_est[:, :3], axis=1).max())
-    _log(f"OD flagship twin rerun of the first 6 h ({len(prefix)} rows): max row position "
+    # the twin and f64 reruns take the warm-up's arc, as in phase 6b
+    twin = od("torch", "f32").process_arc(est, warm_arc)
+    d_twin = float(np.linalg.norm(twin.y_est[:, :3] - warm.y_est[:, :3], axis=1).max())
+    _log(f"OD flagship twin rerun of the first 2 h ({len(warm_arc)} rows): max row position "
          f"difference {d_twin:.3e} km")
     if not d_twin < TWIN_FINAL_TOL_KM:
         raise RuntimeError(f"OD flagship kernel and twin runs differ by {d_twin} km")
-    _f32_vs_f64("OD flagship, first 6 h,", sol6, od("auto", "f64").process_arc(est, prefix))
+    _f32_vs_f64("OD flagship, first 2 h,", warm, od("auto", "f64").process_arc(est, warm_arc))
     _log(f"OD flagship phase: {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, rows_per_s=rate, rows=len(arc), wall=wall)
+
+
+def _sk_scene(stor8):
+    """Config 4's station keeping (examples/03_geo_analysis.py:255-306)
+    through the port: the template, and a factory of propagators by
+    gravity backend."""
+    from nyx_tpu_torch import Epoch, Frames, Orbit, Spacecraft
+    from nyx_tpu_torch.constants import NAIF
+    from nyx_tpu_torch.cosmic.spacecraft import GuidanceMode, Thruster
+    from nyx_tpu_torch.dynamics import (
+        Harmonics, OrbitalDynamics, PointMasses, Ruggiero, SolarPressure, SpacecraftDynamics,
+    )
+    from nyx_tpu_torch.md.objective import Objective
+    from nyx_tpu_torch.md.param import StateParameter
+    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
+
+    epoch = Epoch.from_gregorian_utc(2024, 2, 29, 12, 13, 14)
+    orbit = Orbit.keplerian(42_164.0, 1e-5, 0.0, 163.0, 75.0, 0.0, epoch, Frames.EME2000)
+    sc = Spacecraft.from_thruster(orbit, dry_mass_kg=1000.0, prop_mass_kg=1000.0,
+                                  thruster=Thruster(thrust_N=SK_THRUST_N, isp_s=SK_ISP_S),
+                                  mode=GuidanceMode.Thrust).with_srp(3.0 * 6.0, 1.8)
+    objectives = [
+        Objective.within_tolerance(StateParameter.SMA, 42_165.0, 20.0),
+        Objective.within_tolerance(StateParameter.ECC, 0.001, 5e-5),
+        Objective.within_tolerance(StateParameter.INC, 0.05, 1e-2),
+    ]
+    # thrust is inhibited whenever the occultation exceeds 20 % of the disk
+    law = Ruggiero.from_max_eclipse(objectives, sc, 0.2)
+
+    def propagator(backend):
+        field = Harmonics.from_stor(stor8, precision="split", backend=backend)
+        dyn = SpacecraftDynamics(
+            OrbitalDynamics.from_models((field, PointMasses((NAIF.MOON, NAIF.SUN))), Frames.EME2000),
+            (SolarPressure.default(),),
+            guidance=law,
+        )
+        return Propagator.rk89(dyn, IntegratorOptions(min_step_s=30.0, tolerance=1e-10))
+
+    return sc, propagator
+
+
+def _eom_launch_count(prop, sc, alm, y0):
+    """CUDA kernels one call of the guided EOM launches on the [B, 10]
+    states `y0` (numpy), from torch.profiler (device-side kernel events,
+    the host's kernel-launch calls, and the top-level aten ops)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    y = torch.as_tensor(y0, device="cuda")
+    dyn = prop.dynamics
+    ctx = dyn.build_context(sc.epoch, 600.0, alm, device="cuda")
+    eom = dyn.make_eom(thruster=sc.thruster)
+    p = dict(dry_mass_kg=sc.dry_mass_kg, srp_area_m2=sc.srp_area_m2, drag_area_m2=sc.drag_area_m2)
+    t = torch.zeros(y.shape[0], dtype=torch.float64, device="cuda")
+    eom(t, y, ctx, p)  # the first call fills the field's table cache
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eom(t, y, ctx, p)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in events)
+    host = sum(e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                          "cuLaunchKernelEx") for e in events)
+    ops = sum(e.name.startswith("aten::") and e.cpu_parent is None for e in events)
+    return kernels, host, ops
+
+
+def phase_geo_sk(gp, stor8):
+    """Config 4's station-keeping Monte Carlo on the card: 25 lanes over one
+    day of its 30, after a 600 s warm-up, then 4 of its lanes over the
+    first 6 h through the kernel and through the twin. Returns the
+    summary's numbers."""
+    from nyx_tpu_torch.constants import STD_GRAVITY_M_S2
+    from nyx_tpu_torch.ephem import Almanac
+    from nyx_tpu_torch.mc import MonteCarlo, MvnSpacecraft, StateDispersion
+
+    t_phase = time.perf_counter()
+    sc, propagator = _sk_scene(stor8)
+    prop = propagator("auto")
+    mvn = MvnSpacecraft(sc, [StateDispersion.zero_mean("sma", 3.0)])
+    alm = Almanac()
+    warm = MonteCarlo(mvn, seed=3).run_until_epoch(prop, alm, sc.epoch + 600.0, B_SK, device="cuda")
+    if warm.n_ok != B_SK:
+        raise RuntimeError(f"station keeping warm-up: {warm.n_ok}/{B_SK} lanes ok")
+    _log(f"station keeping warm-up, 600 s: {time.perf_counter() - t_phase:.1f} s")
+    kernels, host_launches, ops = _eom_launch_count(prop, sc, alm, warm.y_initial)
+    _log(f"station keeping EOM, one call at B={B_SK} (torch.profiler): {kernels} CUDA kernels on the "
+         f"device, {host_launches} kernel-launch calls from the host, {ops} top-level aten ops")
+
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = MonteCarlo(mvn, seed=3).run_until_epoch(prop, alm, sc.epoch + SK_SECONDS, B_SK, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, twin_calls = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
+    used = sc.prop_mass_kg - res.y_final[:, 8]
+    days = SK_SECONDS / 86_400.0
+    _log(f"station keeping ({_card_line()}), Config 4, {B_SK} lanes x {days:g} day:")
+    _log(f"  wall {wall:.3f} s, {res.n_ok / wall:.4f} traj/s, "
+         f"{res.n_ok * days / (wall / 60.0):.3f} lane-days per minute")
+    _log(f"  n_ok/n_runs {res.n_ok}/{res.n_runs}")
+    _log(f"  mean accepted steps {float(np.mean(res.n_accepted)):.2f}, mean rejected "
+         f"{float(np.mean(res.n_rejected)):.2f}, integrator iterations {res.iterations}")
+    _log(f"  kernel launches {launches}, twin primal calls on CUDA {twin_calls}")
+    _log(f"  prop used {float(used.mean()):.6f} +/- {float(used.std()):.6f} kg")
+    _log("  final means: " + ", ".join(f"{p} {res.dispersion_values_of(p)[0]:.6f}"
+                                        for p in ("sma", "ecc", "inc")))
+    if res.n_ok != B_SK:
+        raise RuntimeError(f"station keeping: {res.n_ok}/{B_SK} lanes ok")
+    if launches <= 0 or twin_calls != 0:
+        raise RuntimeError(f"station keeping did not run through the kernel: {launches} launches, "
+                           f"{twin_calls} twin primal calls on CUDA")
+    if res.y_final.shape != (B_SK, 10) or not np.isfinite(res.y_final).all():
+        raise RuntimeError("station keeping: final states are not finite [B, 10]")
+    full_day_kg = SK_THRUST_N / (SK_ISP_S * STD_GRAVITY_M_S2) * SK_SECONDS
+    if not ((used > 0.0) & (used <= full_day_kg)).all():
+        raise RuntimeError(f"station keeping: prop used outside (0, {full_day_kg:.4f}] kg: {used}")
+
+    y0 = res.y_initial[:B_SK_TWIN]
+    end = sc.epoch + TWIN_PREFIX_S
+    t0 = time.perf_counter()
+    kernel = MonteCarlo(mvn, seed=3).run_until_epoch(prop, alm, end, B_SK_TWIN, device="cuda", _y0=y0)
+    t1 = time.perf_counter()
+    twin = MonteCarlo(mvn, seed=3).run_until_epoch(propagator("torch"), alm, end, B_SK_TWIN,
+                                                   device="cuda", _y0=y0)
+    t2 = time.perf_counter()
+    if kernel.n_ok != B_SK_TWIN or twin.n_ok != B_SK_TWIN:
+        raise RuntimeError(f"station keeping reruns: {kernel.n_ok} and {twin.n_ok} of {B_SK_TWIN} ok")
+    d_km = float(np.linalg.norm(twin.y_final[:, :3] - kernel.y_final[:, :3], axis=1).max())
+    same_modes = bool(np.array_equal(twin.y_final[:, 9], kernel.y_final[:, 9]))
+    _log(f"station keeping twin rerun of {B_SK_TWIN} lanes over {TWIN_PREFIX_S:g} s (kernel {t1 - t0:.1f} s, "
+         f"{kernel.iterations} iterations; twin {t2 - t1:.1f} s, {twin.iterations} iterations): max final "
+         f"position difference {d_km:.3e} km, final modes {kernel.y_final[:, 9].tolist()} (kernel) and "
+         f"{twin.y_final[:, 9].tolist()} (twin)")
+    if not (d_km < SK_TWIN_TOL_KM and same_modes):
+        raise RuntimeError(f"station keeping kernel and twin runs differ: {d_km} km, modes equal: {same_modes}")
+    _log(f"station keeping phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, traj_per_s=res.n_ok / wall, wall=wall)
 
 
 def main() -> None:
@@ -572,7 +756,9 @@ def main() -> None:
     # phase 3: kernel vs twin
     jgm3 = HERE / "data" / "JGM3.cof.gz"
     stor70 = GravityFieldData.from_cof(jgm3, 70, 70, True, Frames.IAU_EARTH)
+    stor8 = GravityFieldData.from_cof(jgm3, 8, 8, True, Frames.IAU_EARTH)
     fields = {
+        "8x8": Harmonics.from_stor(stor8, "split"),
         "21x21": Harmonics.from_stor(
             GravityFieldData.from_cof(jgm3, 21, 21, True, Frames.IAU_EARTH), "split"),
         "12x6": Harmonics.from_stor(
@@ -621,7 +807,11 @@ def main() -> None:
     od = phase_od(gp, stor21)
     flagship = phase_od_flagship(gp, stor21, od["truth"], od["traj"])
 
+    # phase 6d: Config 4, the station-keeping Monte Carlo
+    geo_sk = phase_geo_sk(gp, stor8)
+
     # phase 7: summary
+    _log(f"chip_smoke.py command time: {time.perf_counter() - _T_START:.1f} s")
     ms21, bound21, bound_by = k3["times"]["21x21"]
     ms70, bound70, _ = k3["times"]["70x70"]
     ms120, bound120, _ = k3["times"]["120x120"]
@@ -652,6 +842,8 @@ def main() -> None:
         "od_rows_per_s": od["rows_per_s"],
         "launches_od_flagship": flagship["launches"],
         "od_flagship_rows_per_s": flagship["rows_per_s"],
+        "launches_geo_sk": geo_sk["launches"],
+        "geo_sk_traj_per_s": geo_sk["traj_per_s"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

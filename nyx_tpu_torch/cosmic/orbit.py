@@ -2,9 +2,10 @@
 
 Element conversions are batched functions over trailing-dimension tensors,
 differentiable with `torch.func`; the host `Orbit` class builds a scalar
-state from elements in float64 on the CPU. The RIC and VNC local frames
-are batched functions too. Anomaly conversions, analytic propagation and
-the element accessors other than `sma_km` are not ported yet.
+state from elements in float64 on the CPU. The RIC, VNC and RCN local
+frames are batched functions too. Anomaly conversions, analytic
+propagation and the element accessors other than `sma_km`, `ecc`,
+`inc_deg` and `value` are not ported yet.
 """
 
 from __future__ import annotations
@@ -117,6 +118,16 @@ def vnc_dcm(r, v):
     return torch.stack([vhat, nhat, chat], dim=-2)
 
 
+def rcn_dcm(r, v):
+    """DCM [..., 3, 3] from inertial to RCN (radial, cross, normal) frame
+    rows."""
+    rhat = r / _norm(r, keepdim=True)
+    h = torch.linalg.cross(r, v, dim=-1)
+    nhat = h / _norm(h, keepdim=True)
+    chat = torch.linalg.cross(nhat, rhat, dim=-1)
+    return torch.stack([rhat, chat, nhat], dim=-2)
+
+
 def _f64(x: float):
     return torch.tensor(x, dtype=torch.float64, device="cpu")
 
@@ -141,10 +152,26 @@ class Orbit:
         )
         return cls(r.numpy(), v.numpy(), epoch, frame)
 
+    def _vector(self):
+        """[9] float64 CPU tensor: position, velocity and three zeros."""
+        return torch.from_numpy(np.concatenate([self.r_km, self.v_km_s, np.zeros(3)]).astype(np.float64))
+
+    def value(self, param: str) -> float:
+        """A StateParameter of this orbit (the port's `md.param.value`),
+        computed on the host in float64."""
+        from ..md.param import value as param_value
+
+        return float(param_value(param, self._vector(), self.frame.mu))
+
     @property
     def sma_km(self) -> float:
         """Osculating semi-major axis, computed on the host in float64."""
-        kep = keplerian_from_cartesian(torch.from_numpy(np.asarray(self.r_km, np.float64)),
-                                       torch.from_numpy(np.asarray(self.v_km_s, np.float64)),
-                                       self.frame.mu)
-        return float(kep["sma"])
+        return self.value("sma")
+
+    @property
+    def ecc(self) -> float:
+        return self.value("ecc")
+
+    @property
+    def inc_deg(self) -> float:
+        return self.value("inc")

@@ -4,19 +4,44 @@ The propagated state vector layout is the reference's:
 
     [x, y, z, vx, vy, vz, Cr, Cd, prop_mass_kg]
 
-Ensembles live on the device as `[B, 9]` float64 tensors; this class is the
-host-side scalar wrapper. Thrusters, guidance modes and a state-carried
-STM are not ported yet (the OD filter builds its STMs itself).
+Ensembles live on the device as `[B, 9]` float64 tensors, with guided
+dynamics appending the guidance mode as a tenth column; this class is the
+host-side scalar wrapper, with an optional thruster and the guidance mode.
+A state-carried STM is not ported (the OD filter builds its STMs itself).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional
 
 import numpy as np
+import torch
 
+from ..constants import STD_GRAVITY_M_S2
+from ..errors import StateError
 from ..time import Epoch
 from .orbit import Orbit
+
+
+class GuidanceMode:
+    """Guidance mode flags (reference: cosmic/spacecraft.rs:52-60)."""
+
+    Coast = 0
+    Thrust = 1
+    Inhibit = 2
+
+
+@dataclass(frozen=True)
+class Thruster:
+    """A constant-thrust engine (reference: dynamics/guidance/mod.rs:51-66)."""
+
+    thrust_N: float
+    isp_s: float
+
+    @property
+    def exhaust_velocity_m_s(self) -> float:
+        return self.isp_s * STD_GRAVITY_M_S2
 
 
 @dataclass
@@ -28,6 +53,8 @@ class Spacecraft:
     cr: float = 1.8
     drag_area_m2: float = 0.0
     cd: float = 2.2
+    thruster: Optional[Thruster] = None
+    mode: int = GuidanceMode.Coast
 
     @classmethod
     def from_orbit(cls, orbit: Orbit) -> "Spacecraft":
@@ -46,6 +73,25 @@ class Spacecraft:
             drag_area_m2=drag_area_m2,
             cd=cd,
         )
+
+    @classmethod
+    def from_thruster(
+        cls, orbit, dry_mass_kg, prop_mass_kg, thruster, mode=GuidanceMode.Coast
+    ) -> "Spacecraft":
+        return cls(
+            orbit,
+            dry_mass_kg=dry_mass_kg,
+            prop_mass_kg=prop_mass_kg,
+            thruster=thruster,
+            mode=mode,
+        )
+
+    def with_srp(self, srp_area_m2, cr) -> "Spacecraft":
+        return replace(self, srp_area_m2=srp_area_m2, cr=cr)
+
+    @property
+    def total_mass_kg(self) -> float:
+        return self.dry_mass_kg + self.prop_mass_kg
 
     @property
     def epoch(self) -> Epoch:
@@ -73,3 +119,34 @@ class Spacecraft:
             cd=float(vec[7]),
             prop_mass_kg=float(vec[8]),
         )
+
+    def value_of(self, param: str) -> float:
+        """A StateParameter of this spacecraft, including the spacecraft-
+        level ones the flat state cannot express (spacecraft.rs
+        `State::value`): epoch, masses, thruster isp and thrust, guidance
+        mode. The others go through the port's `md.param.value`."""
+        from ..md import param as param_mod
+
+        p = param.lower()
+        if p == "epoch_tai_s":
+            return self.epoch.to_tai_seconds()
+        if p == "guidance_mode":
+            return float(self.mode)
+        if p == "dry_mass":
+            return self.dry_mass_kg
+        if p == "total_mass":
+            return self.total_mass_kg
+        if p in ("isp_s", "thrust_n", "thrust_x", "thrust_y", "thrust_z"):
+            if self.thruster is None:
+                raise StateError(f"{param} requires a thruster (none set)")
+            if p == "isp_s":
+                return self.thruster.isp_s
+            if p == "thrust_n":
+                return self.thruster.thrust_N
+            # the reference returns Unavailable without an active guidance
+            # law evaluation (spacecraft.rs:531-543)
+            raise StateError(
+                f"{param} requires an active guidance law evaluation; query the guidance law directly"
+            )
+        y = torch.from_numpy(self.to_vector())
+        return float(param_mod.value(p, y, self.orbit.frame.mu))

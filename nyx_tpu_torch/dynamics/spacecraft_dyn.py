@@ -1,10 +1,12 @@
 """SpacecraftDynamics: the composition root.
 
-Torch port of nyx_tpu/dynamics/spacecraft_dyn.py without guidance:
-orbital dynamics + force models (SRP, drag) as one batched EOM over `[B, 9]`
-float64 states [x,y,z,vx,vy,vz,Cr,Cd,m_prop], and with the STM over
-`[B, 90]` states. The force models evaluate in float32 and their sum is
-cast back to the state dtype.
+Torch port of nyx_tpu/dynamics/spacecraft_dyn.py: orbital dynamics + force
+models (SRP, drag) + an optional guidance law with propellant decrement, as
+one batched EOM over `[B, 9]` float64 states [x,y,z,vx,vy,vz,Cr,Cd,m_prop],
+with the STM over `[B, 90]` states. Guided dynamics append the guidance
+mode as a trailing column (`[B, 10]`), which the post-step hook updates.
+The force models evaluate in float32 and their sum is cast back to the
+state dtype.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Sequence
 
 import torch
 
+from ..constants import STD_GRAVITY_M_S2
+from ..errors import ConfigError
 from ..time import Epoch
 from .orbital import EomContext, OrbitalDynamics
 
@@ -21,14 +25,34 @@ STM_DIM = CORE_DIM * CORE_DIM
 
 
 class SpacecraftDynamics:
-    def __init__(self, orbital_dyn: OrbitalDynamics, force_models: Sequence = ()):
+    def __init__(self, orbital_dyn: OrbitalDynamics, force_models: Sequence = (),
+                 guidance=None, decrement_mass: bool = True):
         self.orbital_dyn = orbital_dyn
         self.force_models = tuple(force_models)
+        self.guidance = guidance
+        self.decrement_mass = decrement_mass
+
+    @classmethod
+    def from_guidance_law(cls, orbital_dyn, guidance, decrement_mass=True) -> "SpacecraftDynamics":
+        return cls(orbital_dyn, (), guidance, decrement_mass)
+
+    def with_guidance_law(self, guidance) -> "SpacecraftDynamics":
+        return SpacecraftDynamics(self.orbital_dyn, self.force_models, guidance, self.decrement_mass)
+
+    @property
+    def has_guidance(self) -> bool:
+        return self.guidance is not None
+
+    def state_dim(self, with_stm: bool = False) -> int:
+        n = CORE_DIM + (STM_DIM if with_stm else 0)
+        return n + 1 if self.has_guidance else n  # guidance mode column (last)
 
     def required_bodies(self):
         bodies = list(self.orbital_dyn.required_bodies())
         for fm in self.force_models:
             bodies.extend(fm.required_bodies())
+        if self.guidance is not None:
+            bodies.extend(self.guidance.required_bodies())
         seen, out = set(), []
         center = self.orbital_dyn.frame.center
         for b in bodies:
@@ -49,9 +73,14 @@ class SpacecraftDynamics:
             table = almanac.build_table(bodies, frame.center, start, end, device=device)
         return EomContext(epoch0_tdb=epoch0.to_tdb_seconds(), table=table, frame=frame)
 
-    def make_eom(self, with_stm: bool = False):
-        """`eom(t_rel_s [B], y [B, 9], ctx, sc_params) -> [B, 9]`. `sc_params`
+    def make_eom(self, with_stm: bool = False, thruster=None):
+        """`eom(t_rel_s [B], y [B, N], ctx, sc_params) -> [B, N]`. `sc_params`
         holds dry_mass_kg, srp_area_m2 and drag_area_m2 (floats).
+
+        With a guidance law, N = 10: the state and the guidance mode, whose
+        derivative is zero; the law's direction and throttle add the
+        thrust `throttle F / (m 1000)` km/s^2 of `thruster` and, with
+        `decrement_mass`, the mass flow -F / (Isp g0).
 
         with_stm=True: the EOM of [B, 90] states, the 9 of the state and
         the 81 of its row-major STM Phi, with Phi' = A Phi and A = d(y9')/d(y9)
@@ -61,7 +90,18 @@ class SpacecraftDynamics:
         run under vmap, takes the primal of every pass in one launch. Lane
         block 0 of that primal is the state derivative: lanes are
         independent, so it is the [B, 9] EOM's value bit for bit."""
-        core = self._core_eom()
+        core = self._core_eom(thruster)
+        if self.has_guidance:
+            if with_stm:
+                raise ConfigError("a guided EOM with the STM is not ported yet")
+            if thruster is None:
+                raise ConfigError("guided dynamics need the spacecraft's thruster")
+
+            def guided(t_rel, y, ctx, p):
+                ydot = core(t_rel, y[:, :CORE_DIM], ctx, p, y[:, CORE_DIM])
+                return torch.cat([ydot, torch.zeros_like(y[:, CORE_DIM:])], dim=-1)
+
+            return guided
         if not with_stm:
             return core
 
@@ -82,8 +122,11 @@ class SpacecraftDynamics:
 
         return eom
 
-    def _core_eom(self):
-        def eom(t_rel, y9, ctx, p):
+    def _core_eom(self, thruster):
+        guidance = self.guidance
+        decrement_mass = self.decrement_mass
+
+        def eom(t_rel, y9, ctx, p, mode=None):
             t_tdb = ctx.epoch0_tdb + t_rel
             r = y9[..., 0:3]
             v = y9[..., 3:6]
@@ -108,17 +151,29 @@ class SpacecraftDynamics:
                 for fm in self.force_models:
                     f = f + fm.force_per_mass(ctx, t_tdb, r32, v32, sc32)
                 a = a + f.to(r.dtype)
+            mdot = torch.zeros_like(m_prop)
+            if guidance is not None:
+                u, throttle = guidance.direction_and_throttle(ctx, t_tdb, y9, mode)
+                f_n = throttle * thruster.thrust_N
+                a = a + (f_n / (mass * 1e3))[..., None] * u
+                if decrement_mass:
+                    mdot = -f_n / (thruster.isp_s * STD_GRAVITY_M_S2)
             zeros = torch.zeros_like(cr)
-            return torch.cat([v, a, torch.stack([zeros, zeros, zeros], dim=-1)], dim=-1)
+            return torch.cat([v, a, torch.stack([zeros, zeros, mdot], dim=-1)], dim=-1)
 
         return eom
 
     def make_finally(self):
-        """Post-accepted-step hook: clamps Cr into [0, 2]."""
+        """Post-accepted-step hook: clamps Cr into [0, 2], then, with a
+        guidance law, sets the mode column to the law's next mode."""
+        guidance = self.guidance
 
         def finally_fn(t_rel, y, ctx, p):
             y = y.clone()
             y[..., 6] = torch.clamp(y[..., 6], 0.0, 2.0)
+            if guidance is not None:
+                t_tdb = ctx.epoch0_tdb + t_rel
+                y[..., -1] = guidance.next_mode(ctx, t_tdb, y[..., 0:CORE_DIM], y[..., -1])
             return y
 
         return finally_fn

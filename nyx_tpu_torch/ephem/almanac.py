@@ -29,10 +29,6 @@ class EphemTable:
     coeffs: torch.Tensor  # [n_bodies, n_records, 3, deg+1] f64, km
     bodies: Tuple[int, ...]  # NAIF ids, in coeffs order
 
-    # Up to this many records, Clenshaw runs once per record and the results
-    # are selected per lane; above it, each lane gathers its record.
-    _EVAL_PER_RECORD_MAX = 8
-
     def index_of(self, body: int) -> int:
         return self.bodies.index(body)
 
@@ -52,19 +48,14 @@ class EphemTable:
         """Position [.., 3] km of body `idx` at TDB seconds [..] (f64 tensor).
 
         `dtype=torch.float32` runs the record selection after the first
-        subtraction and the Clenshaw recurrence in f32.
+        subtraction and the Clenshaw recurrence in f32. Each lane gathers
+        its record's coefficients, so one Clenshaw pass serves any number
+        of records (the reference evaluates every record of a short table
+        and selects, which costs a TPU less than a gather; on the GPU each
+        pass is ~40 small kernel launches from the host).
         """
         rec, tau = self._rec_tau(t_tdb_s, dtype)
-        body_c = self.coeffs[idx].to(dtype)  # [n_rec, 3, D]
-        n_rec = body_c.shape[0]
-        if n_rec == 1:
-            return eval_chebyshev(body_c[0], tau)
-        if n_rec <= self._EVAL_PER_RECORD_MAX:
-            out = eval_chebyshev(body_c[0], tau)
-            for i in range(1, n_rec):
-                out = torch.where((rec == i)[..., None], eval_chebyshev(body_c[i], tau), out)
-            return out
-        return eval_chebyshev(body_c[rec.long()], tau)
+        return eval_chebyshev(self.coeffs[idx].to(dtype)[rec.long()], tau)
 
 
 class Almanac:

@@ -7,7 +7,10 @@ the builtin (`ValueError`) the caller may already catch, under the common
 
 from __future__ import annotations
 
-__all__ = ["NyxError", "StateError", "ConfigError", "PropagationError", "TrajError"]
+__all__ = [
+    "NyxError", "StateError", "ConfigError", "GuidanceConfigError", "PropagationError",
+    "TrajError",
+]
 
 
 class NyxError(Exception):
@@ -21,6 +24,10 @@ class StateError(NyxError, ValueError):
 
 class ConfigError(NyxError, ValueError):
     """Invalid or inconsistent configuration (io/mod.rs ConfigError)."""
+
+
+class GuidanceConfigError(ConfigError):
+    """Guidance law configuration errors (errors.rs GuidanceConfigError)."""
 
 
 class PropagationError(NyxError, RuntimeError):

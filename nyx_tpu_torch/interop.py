@@ -13,7 +13,7 @@ import torch
 
 from .cosmic.frames import Frame, Frames
 from .cosmic.orbit import Orbit
-from .cosmic.spacecraft import Spacecraft
+from .cosmic.spacecraft import GuidanceMode, Spacecraft, Thruster
 from .dynamics.gravity import Harmonics
 from .ephem.almanac import EphemTable
 from .md.trajectory import Trajectory
@@ -61,13 +61,17 @@ def states_from_numpy(y0, *, device) -> torch.Tensor:
 
 def spacecraft_from_numpy(vector, epoch_tai_s: float, frame: Frame = Frames.EME2000, *,
                           dry_mass_kg: float = 0.0, srp_area_m2: float = 0.0,
-                          drag_area_m2: float = 0.0) -> Spacecraft:
-    """A Spacecraft from its 9-state vector and TAI epoch (s past J2000)."""
+                          drag_area_m2: float = 0.0, thruster=None,
+                          mode: int = GuidanceMode.Coast) -> Spacecraft:
+    """A Spacecraft from its 9-state vector and TAI epoch (s past J2000);
+    `thruster` is (thrust N, Isp s) or None, `mode` its guidance mode."""
     vector = np.asarray(vector, dtype=np.float64)
     orbit = Orbit(vector[0:3].copy(), vector[3:6].copy(),
                   Epoch.from_tai_seconds_j2000(float(epoch_tai_s)), frame)
     sc = Spacecraft(orbit, dry_mass_kg=dry_mass_kg, srp_area_m2=srp_area_m2,
-                    drag_area_m2=drag_area_m2)
+                    drag_area_m2=drag_area_m2,
+                    thruster=None if thruster is None else Thruster(*map(float, thruster)),
+                    mode=int(mode))
     return sc.set_vector(orbit.epoch, vector)
 
 

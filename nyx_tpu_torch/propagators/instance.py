@@ -1,11 +1,13 @@
 """PropInstance: one spacecraft propagated on a device.
 
 Torch port of the core of nyx_tpu/propagators/instance.py: packs a
-`Spacecraft` into a [1, 9] float64 state on the device, builds the EOM
-context, runs `integrator.propagate` and unpacks the result, with
-`for_duration_with_traj` reading the capture buffer into a host
-`Trajectory`. A state-carried STM, guidance, an integration frame other
-than the state's, events and the context override are not ported yet.
+`Spacecraft` into a [1, 9] float64 state on the device (with guided
+dynamics, [1, 10]: the guidance mode last), builds the EOM context, runs
+`integrator.propagate` with the EOM of the state's thruster and unpacks the
+result, mode included, with `for_duration_with_traj` reading the capture
+buffer into a host `Trajectory`. A state-carried STM, an integration frame
+other than the state's, events and the context override are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -36,15 +38,27 @@ class PropInstance:
     def dynamics(self):
         return self.prop.dynamics
 
+    def _pack(self) -> torch.Tensor:
+        y = self.state.to_vector()
+        if self.dynamics.has_guidance:
+            y = np.concatenate([y, [float(self.state.mode)]])
+        return torch.as_tensor(y, dtype=torch.float64, device=self.device)[None, :]
+
+    def _unpack(self, epoch, y_row: np.ndarray) -> Spacecraft:
+        sc = self.state.set_vector(epoch, y_row[0:9])
+        if self.dynamics.has_guidance:
+            sc.mode = int(round(float(y_row[-1])))
+        return sc
+
     def _run(self, duration_s: float, n_capture: int = 0):
         dyn = self.dynamics
         sc = self.state
         ctx = dyn.build_context(sc.epoch, duration_s, self.almanac, device=self.device)
-        y0 = torch.as_tensor(sc.to_vector(), dtype=torch.float64, device=self.device)[None, :]
+        y0 = self._pack()
         sc_params = dict(dry_mass_kg=sc.dry_mass_kg, srp_area_m2=sc.srp_area_m2,
                          drag_area_m2=sc.drag_area_m2)
         res = integrator.propagate(
-            dyn.make_eom(), y0, duration_s, self.prop.opts, self.prop.method,
+            dyn.make_eom(thruster=sc.thruster), y0, duration_s, self.prop.opts, self.prop.method,
             finally_fn=dyn.make_finally(), eom_args=(ctx, sc_params), n_capture=n_capture,
         )
         status = int(res.status[0])
@@ -55,7 +69,7 @@ class PropInstance:
                 f"propagation did not finish (status={status}); increase "
                 "IntegratorOptions.max_iterations"
             )
-        self.state = sc.set_vector(sc.epoch + duration_s, res.y[0].cpu().numpy())
+        self.state = self._unpack(sc.epoch + duration_s, res.y[0].cpu().numpy())
         return y0[0].cpu().numpy(), res
 
     def for_duration(self, duration) -> Spacecraft:
