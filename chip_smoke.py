@@ -48,6 +48,23 @@ raises and exits non-zero:
    its kernel launches counted and one EOM call's CUDA launches profiled;
    then 4 of its lanes over the first 6 h through the kernel and the twin
    (final positions within 1e-6 km, the same final modes);
+6e. Config 1 of BASELINE.md, one spacecraft (examples/01_orbit_prop.py:
+   50-93): (a) the example's scene (LEO, 21x21 JGM3 at f64, Sun and Moon,
+   SRP, drag, RK89 at 1e-12) through `Propagator.rk89(...).with_state(sc,
+   almanac)` and `for_duration_with_traj` with n_capture 32,768, over a cut
+   depth of 3,600 s of the example's day (at B = 1 an iteration launches
+   ~24,000 kernels, ~0.3-0.5 s; the hour holds the arc's first apoapsis,
+   at ~1,675 s), timed, with one EOM call profiled; its f64 field runs the
+   port's f64 recursion, never the kernel (the reference sends only
+   float32 evaluations to Pallas), so the kernel's launch count must stay
+   0; then `find_events` (one apoapsis, 1,500-1,800 s in), the parquet and
+   OEM round trips, and `until_event` on a fresh instance on the card from
+   the timed arc's state at 1,500 s to the arc's end, which stops within
+   0.1 s of the timed arc's event and ends within 1e-6 km of its final
+   position; (b) the GMAT truth on the card: a one-day two-body LEO run
+   for the five adaptive tableaus (tests/test_propagators_gmat.py's
+   bounds) and RK4Fixed at 10 s (the day forward and back, and the arc of
+   (a) against the CPU, are held on the CPU by tests/test_torch_config1.py);
 7. print the command time and the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
@@ -102,6 +119,28 @@ SK_ISP_S = 4435.0
 # within KERNEL_REL_TOL of the twin moves it ~1e-7 km. 1e-6 km fails a
 # kernel wrong by more than ~0.02 % of that share.
 SK_TWIN_TOL_KM = 1e-6
+# Config 1 (examples/01_orbit_prop.py): the example's day cut to its first
+# hour, and the window its one apoapsis (~1,675 s) must fall in, whose start
+# is where `until_event`'s fresh instance starts.
+EX01_SECONDS = 3600.0
+EX01_APOAPSIS_S = (1500.0, 1800.0)
+# GMAT's one-day two-body LEO truth (tests/test_propagators_gmat.py:19-45,
+# the reference's propagators.rs:36-145), at GMAT's Earth GM, and the
+# bounds of tests/test_propagators_gmat.py:67, km and km/s.
+GMAT_Y0 = (-2436.45, -2436.45, 6891.037, 5.088_611, -5.088_611, 0.0)
+GMAT_TRUTH = {
+    "Dormand45": (-5_971.194_191_972_314, 3_945.506_662_039_457, 2_864.636_606_375_225_7,
+                  0.049_096_946_846_257_56, -4.185_093_311_278_763, 5.848_940_872_821_106),
+    "Verner56": (-5_971.194_191_678_94, 3_945.506_653_872_037_5, 2_864.636_617_510_367,
+                 0.049_096_956_828_408_46, -4.185_093_317_946_663, 5.848_940_868_134_195_4),
+    "Dormand78": (-5_971.194_191_670_392, 3_945.506_653_218_658, 2_864.636_618_422_25,
+                  0.049_096_957_637_897_856, -4.185_093_318_481_106, 5.848_940_867_745_3),
+    "RK89": (-5_971.194_191_670_676, 3_945.506_653_225_158, 2_864.636_618_413_444_5,
+             0.049_096_957_629_993_46, -4.185_093_318_475_795, 5.848_940_867_748_944),
+    "CashKarp45": (-5_971.194_190_197_366, 3_945.506_606_221_459_6, 2_864.636_682_800_498_4,
+                   0.049_097_015_227_526_38, -4.185_093_356_859_808, 5.848_940_840_578_1),
+}
+GMAT_TOL = {"Dormand45": 1e-7, "CashKarp45": 1e-5}  # 1e-8 for the others
 # Radii of the kernel-vs-twin positions: the main path's LEO, and GEO with
 # Config 4's 3 km sma spread and its ecc objective.
 LEO_RADII_KM = (6_700.0, 7_500.0)
@@ -617,9 +656,9 @@ def _sk_scene(stor8):
 
 
 def _eom_launch_count(prop, sc, alm, y0):
-    """CUDA kernels one call of the guided EOM launches on the [B, 10]
-    states `y0` (numpy), from torch.profiler (device-side kernel events,
-    the host's kernel-launch calls, and the top-level aten ops)."""
+    """CUDA kernels one call of `prop`'s EOM (guided or not) launches on the
+    [B, N] states `y0` (numpy), from torch.profiler (device-side kernel
+    events, the host's kernel-launch calls, and the top-level aten ops)."""
     from torch.profiler import ProfilerActivity, profile
 
     y = torch.as_tensor(y0, device="cuda")
@@ -716,6 +755,165 @@ def phase_geo_sk(gp, stor8):
     return dict(launches=launches, traj_per_s=res.n_ok / wall, wall=wall)
 
 
+def _ex01_scene():
+    """examples/01_orbit_prop.py:50-81 through the port: (spacecraft,
+    propagator)."""
+    from nyx_tpu_torch import Epoch, Frames, Orbit, Spacecraft
+    from nyx_tpu_torch.constants import NAIF
+    from nyx_tpu_torch.dynamics import (
+        Drag, Harmonics, OrbitalDynamics, PointMasses, SolarPressure, SpacecraftDynamics,
+    )
+    from nyx_tpu_torch.io.gravity import GravityFieldData
+    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
+
+    epoch = Epoch.from_gregorian_utc(2024, 2, 29, 12, 13, 14)
+    orbit = Orbit.keplerian(7136.6, 2e-4, 98.7, 30.0, 65.0, 80.0, epoch, Frames.EME2000)
+    sc = Spacecraft.new(orbit, 150.0, 15.0, srp_area_m2=3.0, drag_area_m2=3.0, cr=1.8, cd=2.2)
+    stor = GravityFieldData.from_cof(HERE / "data" / "JGM3.cof.gz", 21, 21, True, Frames.IAU_EARTH)
+    dynamics = SpacecraftDynamics(
+        OrbitalDynamics.from_models([Harmonics.from_stor(stor), PointMasses((NAIF.SUN, NAIF.MOON))],
+                                    Frames.EME2000),
+        (SolarPressure.default(), Drag.earth_exp()),
+    )
+    return sc, Propagator.rk89(dynamics, IntegratorOptions())
+
+
+def phase_config1(gp, device="cuda"):
+    """Config 1 on `device` (the card; "cpu" rehearses it): ex01's scene
+    over EX01_SECONDS, its event, its exports and `until_event` on a fresh
+    instance (a), then the GMAT truth (b). Returns the summary's numbers."""
+    import tempfile
+
+    import pyarrow.parquet as pq
+
+    from nyx_tpu_torch.ephem import Almanac
+    from nyx_tpu_torch.io.export import ExportCfg, read_oem, traj_table
+    from nyx_tpu_torch.md.events import Event, find_events
+
+    t_phase = time.perf_counter()
+    sc, prop = _ex01_scene()
+    alm = Almanac()
+    _log(f"Config 1 initial: {sc}")
+    prop.with_state(sc, alm, device=device).for_duration(60.0)  # warm-up: caches and allocator
+    kernels, host_launches, ops = _eom_launch_count(prop, sc, alm, sc.to_vector()[None])
+    _log(f"Config 1 EOM, one call at B=1 (torch.profiler): {kernels} CUDA kernels on the device, "
+         f"{host_launches} kernel-launch calls from the host, {ops} top-level aten ops")
+
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    inst = prop.with_state(sc, alm, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, traj = inst.for_duration_with_traj(EX01_SECONDS, n_capture=32768)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, f64_calls = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
+    res = inst.last_result
+    iters = res.iterations
+    days_per_min = EX01_SECONDS / 86_400.0 / (wall / 60.0)
+    _log(f"Config 1 ({_card_line()}), ex01 over {EX01_SECONDS:g} s of its day, B=1:")
+    _log(f"  wall {wall:.3f} s, {days_per_min:.4f} propagated days per wall minute")
+    _log(f"  nodes {len(traj)}, accepted steps {int(res.n_accepted[0])}, rejected "
+         f"{int(res.n_rejected[0])}, integrator iterations {iters}, {1e3 * wall / iters:.3f} ms an iteration")
+    _log(f"  kernel launches {launches}: the 21x21 field is f64, whose recursion runs in the port's "
+         f"f64 torch code, as the reference sends only float32 evaluations to Pallas")
+    _log(f"  f64 recursion calls on CUDA {f64_calls}")
+    _log(f"final: {final}")
+    _log(str(traj))
+    if launches != 0 or f64_calls <= 0:
+        raise RuntimeError(f"Config 1: {launches} kernel launches (want 0), {f64_calls} f64 recursion calls")
+    if not np.isfinite(traj.ys).all() or traj.ys.shape[1] != 9:
+        raise RuntimeError("Config 1: trajectory nodes are not finite [K, 9]")
+
+    found = find_events(traj, Event.apoapsis(), max_events=20)
+    if len(found) != 1:
+        raise RuntimeError(f"Config 1: {len(found)} apoapsis events in {EX01_SECONDS:g} s, want 1")
+    ev = found[0]
+    ta, t_ev = ev.state.orbit.ta_deg, (ev.epoch - sc.epoch).to_seconds()
+    _log(f"  apoapsis at {ev.epoch} ({t_ev:.4f} s after the start): rmag {ev.state.orbit.rmag_km:.6f} km, "
+         f"ta {ta:.6f} deg")
+    if not (abs(min(ta, 360.0 - ta) - 180.0) < 0.05 and EX01_APOAPSIS_S[0] <= t_ev <= EX01_APOAPSIS_S[1]):
+        raise RuntimeError(f"Config 1: apoapsis off (ta {ta} deg, {t_ev} s after the start)")
+    with tempfile.TemporaryDirectory() as tmp:
+        traj.to_parquet(Path(tmp) / "ex01_traj.parquet")
+        traj.to_oem(Path(tmp) / "ex01_traj.oem")
+        same = pq.read_table(Path(tmp) / "ex01_traj.parquet").equals(traj_table(traj, ExportCfg()))
+        back = read_oem(Path(tmp) / "ex01_traj.oem", traj.template)
+        d_oem = float(np.abs(back.ys[:, :6] - traj.ys[:, :6]).max()) if len(back) == len(traj) else np.inf
+    _log(f"  parquet read back equal to the in-memory columns: {same}; OEM read back: {len(back)} nodes, "
+         f"max difference {d_oem:.3e}")
+    if not (same and d_oem < 1e-5):
+        raise RuntimeError("Config 1: the parquet or OEM export does not read back")
+
+    # until_event on a fresh instance on the card, from the timed arc's state
+    # at the window's start to the arc's end (past the shadow's entry at
+    # ~1,330 s, whose steps take most of the arc's iterations)
+    t0 = time.perf_counter()
+    t_from = EX01_APOAPSIS_S[0]
+    fresh = prop.with_state(traj.at(sc.epoch + t_from), alm, device=device)
+    stop, arc = fresh.until_event(EX01_SECONDS - t_from, Event.apoapsis())
+    d_stop = abs((stop.epoch - ev.epoch).to_seconds())
+    d_rmag = abs(stop.orbit.rmag_km - ev.state.orbit.rmag_km)
+    d_end = float(np.linalg.norm(arc.last.orbit.r_km - final.orbit.r_km))
+    _log(f"  until_event on a fresh instance from {t_from:g} s ({time.perf_counter() - t0:.1f} s, "
+         f"{len(arc)} nodes, {fresh.last_result.iterations} iterations): {d_stop:.3e} s and {d_rmag:.3e} km "
+         f"in rmag from the timed arc's event; its arc ends {d_end:.3e} km from the timed arc's final position")
+    if not (d_stop < 0.1 and d_rmag < 1e-6 and d_end < 1e-6):
+        raise RuntimeError(f"Config 1: until_event {d_stop} s and {d_rmag} km from the event, "
+                           f"its arc ends {d_end} km off")
+    _log(f"Config 1 (a): {time.perf_counter() - t_phase:.1f} s")
+    gmat = phase_gmat(device)
+    _log(f"Config 1 phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(wall=wall, days_per_min=days_per_min, iterations=iters, launches=launches,
+                f64_calls=f64_calls, eom_kernels=kernels, gmat=gmat)
+
+
+def phase_gmat(device="cuda"):
+    """GMAT's one-day two-body truth through `integrator.propagate` on
+    `device`: the five adaptive tableaus (RSSCartesianState, 0.1-30 s,
+    1e-12) and RK4Fixed at 10 s. Returns the largest error of each run."""
+    from nyx_tpu_torch.constants import GM
+    from nyx_tpu_torch.propagators import ErrorControl, IntegratorMethod, IntegratorOptions
+    from nyx_tpu_torch.propagators.integrator import DONE, propagate
+
+    mu = GM.GMAT_EARTH
+
+    def eom(t, y):
+        r = y[..., 0:3]
+        rmag = torch.linalg.vector_norm(r, dim=-1, keepdim=True)
+        return torch.cat([y[..., 3:6], -mu * r / rmag**3], dim=-1)
+
+    opts = IntegratorOptions.with_adaptive_step(0.1, 30.0, 1e-12, ErrorControl.RSSCartesianState)
+    y0 = torch.tensor([GMAT_Y0], dtype=torch.float64, device=device)
+    out = {}
+
+    def run(label, y, seconds, options, method):
+        t0 = time.perf_counter()
+        res = propagate(eom, y, seconds, options, method)
+        if int(res.status[0]) != DONE:
+            raise RuntimeError(f"GMAT {label}: the run did not finish")
+        _log(f"  {label}: {int(res.n_accepted[0])} steps, {res.iterations} iterations, "
+             f"{time.perf_counter() - t0:.1f} s")
+        return res
+
+    for name, truth in GMAT_TRUTH.items():
+        res = run(name, y0, 86_400.0, opts, IntegratorMethod(name))
+        err = np.abs(res.y[0].cpu().numpy() - np.array(truth))
+        tol = GMAT_TOL.get(name, 1e-8)
+        _log(f"  {name} vs GMAT: position {err[:3].max():.3e} km, velocity {err[3:].max():.3e} km/s "
+             f"(bound {tol:g})")
+        if not (err[:3].max() < tol and err[3:].max() < tol):
+            raise RuntimeError(f"GMAT {name}: off the truth by {err}")
+        out[name] = float(err.max())
+    res = run("RK4Fixed at 10 s", y0, 86_400.0, IntegratorOptions.with_fixed_step(10.0), IntegratorMethod.RK4Fixed)
+    err = float(np.linalg.norm(res.y[0, :3].cpu().numpy() - np.array(GMAT_TRUTH["RK89"][:3])))
+    _log(f"  RK4Fixed vs the RK89 truth: {err:.3e} km")
+    if not (int(res.n_accepted[0]) == 8640 and err < 1e-3):
+        raise RuntimeError(f"GMAT RK4Fixed: {int(res.n_accepted[0])} steps, {err} km")
+    out["RK4Fixed"] = err
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--duration-s", type=float, default=86_400.0,
@@ -809,6 +1007,9 @@ def main() -> None:
 
     # phase 6d: Config 4, the station-keeping Monte Carlo
     geo_sk = phase_geo_sk(gp, stor8)
+
+    # phase 6e: Config 1, one spacecraft, and the GMAT truth
+    phase_config1(gp)
 
     # phase 7: summary
     _log(f"chip_smoke.py command time: {time.perf_counter() - _T_START:.1f} s")

@@ -59,6 +59,23 @@ class Frame:
             return rotations.iau_earth_dcm(t_tdb_s)
         raise ConfigError(f"no orientation model for frame orientation {o} in the port")
 
+    def __str__(self):
+        """The reference's names: "Earth J2000", "IAU_Earth", ..."""
+        names = {
+            NAIF.EARTH: "Earth",
+            NAIF.MOON: "Moon",
+            NAIF.SUN: "Sun",
+            NAIF.MARS: "Mars",
+            NAIF.EARTH_MOON_BARYCENTER: "EMB",
+            NAIF.SSB: "SSB",
+        }
+        c = names.get(self.center, str(self.center))
+        if self.orientation == J2000_ORIENT:
+            return f"{c} J2000"
+        if self.orientation >= 10_000:
+            return f"IAU_{c}"
+        return f"{c}/{self.orientation}"
+
 
 class Frames:
     """Common frames, mirroring anise::constants::frames."""

@@ -2,16 +2,17 @@
 
 Element conversions are batched functions over trailing-dimension tensors,
 differentiable with `torch.func`; the host `Orbit` class builds a scalar
-state from elements in float64 on the CPU. The RIC, VNC and RCN local
-frames are batched functions too. Anomaly conversions, analytic
-propagation and the element accessors other than `sma_km`, `ecc`,
-`inc_deg` and `value` are not ported yet.
+state from elements in float64 on the CPU and reads its elements back
+(`rmag_km` through `fpa_deg`, `value`) the same way. The RIC, VNC and RCN
+local frames and the true -> eccentric -> mean anomaly conversions are
+batched functions too. The inverse anomaly conversions and analytic
+propagation (`Orbit.at_epoch`) are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -22,6 +23,7 @@ from .frames import Frame
 
 _TWO_PI = 2 * math.pi
 _D2R = np.pi / 180.0
+_EPS = 1e-12
 
 
 def keplerian_from_cartesian(r, v, mu: float):
@@ -98,6 +100,23 @@ def cartesian_from_keplerian(sma, ecc, inc, raan, aop, ta, mu: float):
     return r, v
 
 
+def true_to_ecc_anomaly(ta, ecc):
+    """True -> eccentric (elliptic) or hyperbolic anomaly, radians."""
+    ell = torch.atan2(torch.sqrt(torch.clamp(1 - ecc**2, min=_EPS)) * torch.sin(ta),
+                      ecc + torch.cos(ta))
+    # hyperbolic: H = 2 atanh( sqrt((e-1)/(e+1)) tan(ta/2) )
+    arg = torch.sqrt(torch.clamp((ecc - 1) / (ecc + 1), min=_EPS)) * torch.tan(ta / 2)
+    hyp = 2 * torch.atanh(torch.clamp(arg, -1 + _EPS, 1 - _EPS))
+    return torch.where(ecc < 1.0, ell, hyp)
+
+
+def ecc_to_mean_anomaly(ea, ecc):
+    """Eccentric (or hyperbolic) -> mean anomaly, radians."""
+    ell = ea - ecc * torch.sin(ea)
+    hyp = ecc * torch.sinh(ea) - ea
+    return torch.where(ecc < 1.0, ell, hyp)
+
+
 def ric_dcm(r, v):
     """DCM [..., 3, 3] from inertial to RIC (radial, in-track, cross-track)
     frame rows."""
@@ -143,6 +162,11 @@ class Orbit:
     frame: Frame
 
     @classmethod
+    def cartesian(cls, x, y, z, vx, vy, vz, epoch: Epoch, frame: Frame) -> "Orbit":
+        return cls(np.array([x, y, z], dtype=np.float64), np.array([vx, vy, vz], dtype=np.float64),
+                   epoch, frame)
+
+    @classmethod
     def keplerian(
         cls, sma_km, ecc, inc_deg, raan_deg, aop_deg, ta_deg, epoch: Epoch, frame: Frame
     ) -> "Orbit":
@@ -161,11 +185,31 @@ class Orbit:
         computed on the host in float64."""
         from ..md.param import value as param_value
 
-        return float(param_value(param, self._vector(), self.frame.mu))
+        return float(param_value(param, self._vector(), self.frame.mu, self.frame.radius_km or 0.0))
+
+    def to_cartesian_pos_vel(self) -> np.ndarray:
+        return np.concatenate([self.r_km, self.v_km_s])
 
     @property
+    def rmag_km(self) -> float:
+        return float(np.linalg.norm(self.r_km))
+
+    @property
+    def vmag_km_s(self) -> float:
+        return float(np.linalg.norm(self.v_km_s))
+
+    def ric_difference(self, other: "Orbit") -> "Orbit":
+        """This orbit minus `other`, in `other`'s RIC frame: an Orbit whose
+        r/v are the RIC deltas."""
+        dcm = ric_dcm(torch.from_numpy(np.asarray(other.r_km, np.float64)),
+                      torch.from_numpy(np.asarray(other.v_km_s, np.float64))).numpy()
+        dr = dcm @ (np.asarray(self.r_km) - np.asarray(other.r_km))
+        dv = dcm @ (np.asarray(self.v_km_s) - np.asarray(other.v_km_s))
+        return replace(self, r_km=dr, v_km_s=dv)
+
+    # the osculating elements, each computed on the host in float64
+    @property
     def sma_km(self) -> float:
-        """Osculating semi-major axis, computed on the host in float64."""
         return self.value("sma")
 
     @property
@@ -175,3 +219,74 @@ class Orbit:
     @property
     def inc_deg(self) -> float:
         return self.value("inc")
+
+    @property
+    def raan_deg(self) -> float:
+        return self.value("raan")
+
+    @property
+    def aop_deg(self) -> float:
+        return self.value("aop")
+
+    @property
+    def ta_deg(self) -> float:
+        return self.value("ta")
+
+    @property
+    def ea_deg(self) -> float:
+        return self.value("ea")
+
+    @property
+    def ma_deg(self) -> float:
+        return self.value("ma")
+
+    @property
+    def energy_km2_s2(self) -> float:
+        return self.vmag_km_s**2 / 2 - self.frame.mu / self.rmag_km
+
+    @property
+    def period_s(self) -> float:
+        sma = self.sma_km
+        if sma <= 0:
+            return float("nan")
+        return 2 * np.pi * np.sqrt(sma**3 / self.frame.mu)
+
+    @property
+    def periapsis_km(self) -> float:
+        return self.value("periapsis_radius")
+
+    @property
+    def apoapsis_km(self) -> float:
+        return self.value("apoapsis_radius")
+
+    @property
+    def periapsis_altitude_km(self) -> float:
+        return self.periapsis_km - (self.frame.radius_km or 0.0)
+
+    @property
+    def apoapsis_altitude_km(self) -> float:
+        return self.apoapsis_km - (self.frame.radius_km or 0.0)
+
+    @property
+    def hmag(self) -> float:
+        return float(np.linalg.norm(np.cross(self.r_km, self.v_km_s)))
+
+    @property
+    def c3_km2_s2(self) -> float:
+        return -self.frame.mu / self.sma_km
+
+    @property
+    def declination_deg(self) -> float:
+        return float(np.degrees(np.arcsin(self.r_km[2] / self.rmag_km)))
+
+    @property
+    def right_ascension_deg(self) -> float:
+        return float(np.degrees(np.arctan2(self.r_km[1], self.r_km[0])) % 360.0)
+
+    @property
+    def fpa_deg(self) -> float:
+        rdotv = float(np.dot(self.r_km, self.v_km_s))
+        return float(np.degrees(np.arcsin(rdotv / (self.rmag_km * self.vmag_km_s))))
+
+    def __str__(self):
+        return f"[{self.frame}] r={self.r_km} km v={self.v_km_s} km/s @ {self.epoch}"

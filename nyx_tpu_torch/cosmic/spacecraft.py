@@ -149,4 +149,11 @@ class Spacecraft:
                 f"{param} requires an active guidance law evaluation; query the guidance law directly"
             )
         y = torch.from_numpy(self.to_vector())
-        return float(param_mod.value(p, y, self.orbit.frame.mu))
+        frame = self.orbit.frame
+        return float(param_mod.value(p, y, frame.mu, frame.radius_km or 0.0))
+
+    def __str__(self):
+        return (
+            f"Spacecraft(total {self.total_mass_kg:.3f} kg, "
+            f"Cr={self.cr}, Cd={self.cd}) {self.orbit}"
+        )

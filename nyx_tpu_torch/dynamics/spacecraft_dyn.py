@@ -32,6 +32,15 @@ class SpacecraftDynamics:
         self.guidance = guidance
         self.decrement_mass = decrement_mass
 
+    # the reference's constructors SpacecraftDynamics::new / from_models
+    @classmethod
+    def new(cls, orbital_dyn) -> "SpacecraftDynamics":
+        return cls(orbital_dyn)
+
+    @classmethod
+    def from_models(cls, orbital_dyn, force_models) -> "SpacecraftDynamics":
+        return cls(orbital_dyn, force_models)
+
     @classmethod
     def from_guidance_law(cls, orbital_dyn, guidance, decrement_mass=True) -> "SpacecraftDynamics":
         return cls(orbital_dyn, (), guidance, decrement_mass)

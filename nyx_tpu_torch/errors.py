@@ -2,14 +2,17 @@
 
 Copied from nyx_tpu/errors.py: one class per layer, each also subclassing
 the builtin (`ValueError`) the caller may already catch, under the common
-`NyxError`. The reference's other classes are not needed yet.
+`NyxError`. `PropagationNaNError` is the port's own: the reference raises
+the builtin `ArithmeticError` on a NaN lane, so the port's class is both
+that and a `PropagationError`. The reference's other classes are not
+needed yet.
 """
 
 from __future__ import annotations
 
 __all__ = [
     "NyxError", "StateError", "ConfigError", "GuidanceConfigError", "PropagationError",
-    "TrajError",
+    "PropagationNaNError", "TrajError", "EventError",
 ]
 
 
@@ -35,6 +38,15 @@ class PropagationError(NyxError, RuntimeError):
     stop conditions (propagators/mod.rs PropagationError)."""
 
 
+class PropagationNaNError(PropagationError, ArithmeticError):
+    """A lane's state turned to NaN: caught by `except ArithmeticError`,
+    as the reference's, and by `except PropagationError`."""
+
+
 class TrajError(NyxError, ValueError):
     """Trajectory storage/interpolation errors: out-of-bounds epoch,
     empty trajectory, capture overflow (md/trajectory/mod.rs TrajError)."""
+
+
+class EventError(TrajError):
+    """Event search failures: event never found in the arc (md/events)."""

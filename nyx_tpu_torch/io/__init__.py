@@ -1,3 +1,4 @@
+from .export import ExportCfg
 from .gravity import GravityFieldData
 
-__all__ = ["GravityFieldData"]
+__all__ = ["ExportCfg", "GravityFieldData"]

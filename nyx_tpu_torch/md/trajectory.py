@@ -1,22 +1,27 @@
 """Trajectory storage and Hermite interpolation.
 
-Host-side numpy copy of the parts of nyx_tpu/md/trajectory.py that the
-tracking simulator and the OD checks use: `hermite_eval`, and a
-`Trajectory` built from a propagation's captured nodes with the
+Host-side numpy copy of nyx_tpu/md/trajectory.py:1-234: `hermite_eval`,
+and a `Trajectory` built from a propagation's captured nodes with the
 13-sample sliding-window Hermite interpolation of position and velocity
 (linear in the other columns), including the window's thinning of
-near-coincident nodes. Resampling, events and queries are not ported yet.
+near-coincident nodes; its queries (first/last, every, every_between,
+sample_values, resample, rebuild, filter_by_*) and its parquet and OEM
+export (io/export.py). Frame transforms, ground tracks, RIC differences,
+`from_bsp`, `to_ephemeris` and `from_parquet` are not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterator
 
 import numpy as np
+import torch
 
 from ..cosmic.spacecraft import Spacecraft
 from ..errors import TrajError
-from ..time import Epoch
+from ..time import Duration, Epoch
+from . import param as param_mod
 
 INTERPOLATION_SAMPLES = 13
 
@@ -75,6 +80,25 @@ class Trajectory:
     def __len__(self):
         return len(self.ts)
 
+    @property
+    def first(self) -> Spacecraft:
+        return self._state_at_index(0)
+
+    @property
+    def last(self) -> Spacecraft:
+        return self._state_at_index(len(self.ts) - 1)
+
+    @property
+    def start_epoch(self) -> Epoch:
+        return self.epoch0 + float(self.ts[0])
+
+    @property
+    def end_epoch(self) -> Epoch:
+        return self.epoch0 + float(self.ts[-1])
+
+    def _state_at_index(self, i: int) -> Spacecraft:
+        return self.template.set_vector(self.epoch0 + float(self.ts[i]), self.ys[i])
+
     def _window(self, t_rel: float):
         i = int(np.searchsorted(self.ts, t_rel))
         half = INTERPOLATION_SAMPLES // 2
@@ -118,3 +142,83 @@ class Trajectory:
     def at(self, epoch: Epoch) -> Spacecraft:
         t_rel = (epoch - self.epoch0).to_seconds()
         return self.template.set_vector(epoch, self.interpolate(t_rel)[:9])
+
+    # ---------------- queries ----------------------------------------
+    def every(self, step) -> Iterator[Spacecraft]:
+        step_s = _secs(step)
+        t = float(self.ts[0])
+        while t <= self.ts[-1] + 1e-9:
+            yield self.template.set_vector(
+                self.epoch0 + t, self.interpolate(min(t, float(self.ts[-1])))[:9]
+            )
+            t += step_s
+
+    def every_between(self, step, start: Epoch, end: Epoch) -> Iterator[Spacecraft]:
+        step_s = _secs(step)
+        t = (start - self.epoch0).to_seconds()
+        t_end = (end - self.epoch0).to_seconds()
+        while t <= t_end + 1e-9:
+            yield self.template.set_vector(self.epoch0 + t, self.interpolate(t)[:9])
+            t += step_s
+
+    def values_of(self, parameter: str, ys) -> np.ndarray:
+        """A StateParameter of the states `ys` [K, N] in this trajectory's
+        frame (the port's `param.value` on CPU float64 tensors)."""
+        frame = self.template.frame
+        y = torch.as_tensor(np.asarray(ys, dtype=np.float64))
+        return param_mod.value(parameter, y, frame.mu, frame.radius_km or 0.0).numpy()
+
+    def sample_values(self, parameter: str, step) -> tuple[np.ndarray, np.ndarray]:
+        """(rel_seconds, values) of a StateParameter at a fixed step."""
+        ts = np.arange(self.ts[0], self.ts[-1] + 1e-9, _secs(step))
+        ys = np.stack([self.interpolate(t) for t in ts])
+        return ts, self.values_of(parameter, ys)
+
+    def resample(self, step) -> "Trajectory":
+        ts = np.arange(self.ts[0], self.ts[-1] + 1e-9, _secs(step))
+        ys = np.stack([self.interpolate(t) for t in ts])
+        return Trajectory(self.epoch0, ts, ys, self.template)
+
+    def rebuild(self, epochs) -> "Trajectory":
+        """New trajectory whose nodes sit exactly at `epochs` (any, possibly
+        non-uniform, epochs), each interpolated from this trajectory."""
+        ts = np.asarray([(e - self.epoch0).to_seconds() for e in epochs], dtype=np.float64)
+        ys = np.stack([self.interpolate(float(t)) for t in ts])
+        return Trajectory(self.epoch0, ts, ys, self.template)
+
+    def filter_by_epoch(self, start: Epoch, end: Epoch) -> "Trajectory":
+        """Sub-trajectory whose nodes fall in [start, end]."""
+        s = (start - self.epoch0).to_seconds()
+        e = (end - self.epoch0).to_seconds()
+        keep = (self.ts >= s - 1e-9) & (self.ts <= e + 1e-9)
+        if not np.any(keep):
+            raise TrajError("no trajectory nodes in the requested window")
+        return Trajectory(self.epoch0, self.ts[keep], self.ys[keep], self.template)
+
+    def filter_by_offset(self, start_offset_s=0.0, end_offset_s=None) -> "Trajectory":
+        """Sub-trajectory by offsets (s or Duration) from the first node."""
+        t0 = float(self.ts[0])
+        keep = self.ts - t0 >= _secs(start_offset_s) - 1e-9
+        if end_offset_s is not None:
+            keep &= self.ts - t0 <= _secs(end_offset_s) + 1e-9
+        if not np.any(keep):
+            raise TrajError("no trajectory nodes in the requested window")
+        return Trajectory(self.epoch0, self.ts[keep], self.ys[keep], self.template)
+
+    # ---------------- export (parquet/OEM in io.export) ---------------
+    def to_parquet(self, path, cfg=None):
+        from ..io.export import traj_to_parquet
+
+        return traj_to_parquet(self, path, cfg)
+
+    def to_oem(self, path, cfg=None):
+        from ..io.export import traj_to_oem
+
+        return traj_to_oem(self, path, cfg)
+
+    def __str__(self):
+        return f"Trajectory from {self.start_epoch} to {self.end_epoch} ({len(self.ts)} states)"
+
+
+def _secs(x) -> float:
+    return x.to_seconds() if isinstance(x, Duration) else float(x)

@@ -79,8 +79,10 @@ class TrackingArcSim:
             self._grid_cache[sampling_s] = (ts, ys)
         return self._grid_cache[sampling_s]
 
-    def build_schedule(self) -> List[Strand]:
-        """Visibility strands per device, then the scheduler's hand-off."""
+    def build_schedule(self, almanac=None) -> List[Strand]:
+        """Visibility strands per device, then the scheduler's hand-off.
+        `almanac` is accepted as the reference accepts it, and unused: the
+        stations' geometry needs no ephemeris."""
         strands: List[Strand] = []
         grids = {}
         t0_tdb = self.traj.epoch0.to_tdb_seconds()
@@ -122,10 +124,11 @@ class TrackingArcSim:
         self._grids = grids
         return pruned
 
-    def generate_measurements(self) -> TrackingDataArc:
-        """Sample every strand at its device's cadence, with seeded noise."""
+    def generate_measurements(self, almanac=None) -> TrackingDataArc:
+        """Sample every strand at its device's cadence, with seeded noise
+        (`almanac` as in `build_schedule`)."""
         if self._schedule is None:
-            self.build_schedule()
+            self.build_schedule(almanac)
         rng = np.random.default_rng(self.seed)
         dev_map = {d.name: d for d in self.devices}
         noise_states = {d.name: NoiseState(dict(d.stochastic_noises), rng) for d in self.devices}

@@ -5,9 +5,12 @@ Torch port of the core of nyx_tpu/propagators/instance.py: packs a
 dynamics, [1, 10]: the guidance mode last), builds the EOM context, runs
 `integrator.propagate` with the EOM of the state's thruster and unpacks the
 result, mode included, with `for_duration_with_traj` reading the capture
-buffer into a host `Trajectory`. A state-carried STM, an integration frame
-other than the state's, events and the context override are not ported
-yet.
+buffer into a host `Trajectory`; `until_epoch` and the event stops
+(`until_event`, `until_nth_event`: propagate with capture, then root-find
+on the trajectory) build on it. A lane that turns to NaN raises
+`PropagationNaNError`, an `ArithmeticError` as the reference's. A
+state-carried STM, an integration frame other than the state's and the
+context override are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,9 +19,9 @@ import numpy as np
 import torch
 
 from ..cosmic.spacecraft import Spacecraft
-from ..errors import PropagationError, TrajError
+from ..errors import EventError, PropagationError, PropagationNaNError, TrajError
 from ..md.trajectory import Trajectory
-from ..time import Duration
+from ..time import Duration, Epoch
 from . import integrator
 from .integrator import DONE, FAILED_NAN
 
@@ -33,6 +36,9 @@ class PropInstance:
         self.state = state
         self.almanac = almanac
         self.device = torch.device(device)
+        #: the integrator's PropResult of the latest propagation (steps,
+        #: iterations), or None before the first
+        self.last_result = None
 
     @property
     def dynamics(self):
@@ -61,9 +67,10 @@ class PropInstance:
             dyn.make_eom(thruster=sc.thruster), y0, duration_s, self.prop.opts, self.prop.method,
             finally_fn=dyn.make_finally(), eom_args=(ctx, sc_params), n_capture=n_capture,
         )
+        self.last_result = res
         status = int(res.status[0])
         if status == FAILED_NAN:
-            raise PropagationError("propagation diverged to NaN; try another method or smaller steps")
+            raise PropagationNaNError("propagation diverged to NaN; try another method or smaller steps")
         if status != DONE:
             raise PropagationError(
                 f"propagation did not finish (status={status}); increase "
@@ -91,3 +98,33 @@ class PropInstance:
         ts = np.concatenate([[0.0], res.traj_t[0, :n].cpu().numpy()])
         ys = np.concatenate([y0[None, :], res.traj_y[0, :n].cpu().numpy()])
         return self.state, Trajectory.from_capture(epoch0, ts, ys, template)
+
+    def until_epoch(self, epoch: Epoch) -> Spacecraft:
+        return self.for_duration(epoch - self.state.epoch)
+
+    def until_epoch_with_traj(self, epoch: Epoch, n_capture: int = 8192):
+        return self.for_duration_with_traj(epoch - self.state.epoch, n_capture)
+
+    def until_event(self, max_duration, event, n_capture: int = 8192):
+        """Propagate until the first occurrence of `event` within
+        `max_duration`: (state at the event, trajectory of the whole arc)."""
+        return self.until_nth_event(max_duration, event, 0, n_capture)
+
+    def until_nth_event(self, max_duration, event, trigger: int, n_capture: int = 8192):
+        """Propagate until the (trigger+1)-th crossing of `event`, found on
+        the captured trajectory of `max_duration`. Raises EventError if the
+        arc holds fewer."""
+        from ..md.events import find_events
+
+        _, traj = self.for_duration_with_traj(max_duration, n_capture)
+        details = find_events(traj, event, max_events=trigger + 1)
+        if len(details) <= trigger:
+            raise EventError(
+                f"event {event} not found {trigger + 1} time(s) within "
+                f"{_secs(max_duration)} s (found {len(details)})"
+            )
+        self.state = traj.at(details[trigger].epoch)
+        return self.state, traj
+
+    def latest_details(self) -> dict:
+        return dict(step=None, error=None, attempts=None)

@@ -13,9 +13,11 @@ asks the device whether any lane is still RUNNING only once every
 CHECK_EVERY steps: the steps in between are exact no-ops for finished
 lanes, so the result equals a check after every step (the contract of the
 reference's fixed-trip `loop_mode="scan"`), with one host sync per chunk.
-Fixed-step methods (RK4Fixed) are not ported yet; `_rk_stages` serves the
-OD filter's one fixed RK step per gap (the reference's `_rk_stages_looped`
-computes the same increment with its stages in a scan).
+Fixed-step integration (`options.fixed_step`, or a fixed-only method such
+as RK4Fixed) takes zero error, accepts every step and keeps h, the last
+step clamped like any other. `_rk_stages` also serves the OD filter's one
+fixed RK step per gap (the reference's `_rk_stages_looped` computes the
+same increment with its stages in a scan).
 """
 
 from __future__ import annotations
@@ -99,8 +101,6 @@ def propagate(
     """
     if y0.dtype != torch.float64 or y0.dim() != 2:
         raise ValueError(f"y0 must be a [B, N] float64 tensor, got {y0.dtype} {tuple(y0.shape)}")
-    if method.is_fixed_only:
-        raise ValueError(f"{method.name} is a fixed-step method: not ported yet")
     if eom_args:
         inner_eom, inner_fin = eom, finally_fn
         eom = lambda t, y: inner_eom(t, y, *eom_args)  # noqa: E731
@@ -119,6 +119,7 @@ def propagate(
 
     a, b, b_star, c = method.a_matrix, method.b, method.b_star, method.c
     order = float(method.order)
+    fixed = options.fixed_step or method.is_fixed_only
     min_step, max_step = options.min_step_s, options.max_step_s
     tol, max_attempts = options.tolerance, options.attempts
 
@@ -155,15 +156,19 @@ def propagate(
         next_y = y + inc_eff
         comp_new = inc_eff - (next_y - y)
 
-        err = options.error_ctrl(err_vec, next_y, y)
-        # A clamped (overshooting) step is NOT force-accepted: the first step
-        # can overshoot, and a rejected clamped step shrinks h and retries
-        # like any other.
-        accept = (
-            (err <= tol)
-            | (torch.abs(h_use) <= min_step * (1 + 1e-12))
-            | (attempts >= max_attempts)
-        )
+        if fixed:
+            err = torch.zeros(B, **f64)
+            accept = torch.ones(B, dtype=torch.bool, device=y0.device)
+        else:
+            err = options.error_ctrl(err_vec, next_y, y)
+            # A clamped (overshooting) step is NOT force-accepted: the first
+            # step can overshoot, and a rejected clamped step shrinks h and
+            # retries like any other.
+            accept = (
+                (err <= tol)
+                | (torch.abs(h_use) <= min_step * (1 + 1e-12))
+                | (attempts >= max_attempts)
+            )
 
         t_new = t + h_use
         finished = overshoot | ((t_new - t_stop) * sgn >= 0.0)
@@ -177,8 +182,11 @@ def propagate(
         f_shrink = (tol / safe_err) ** (1.0 / (order - 1.0))
         grow = 0.9 * torch.abs(h) * f_grow
         shrink = 0.9 * torch.abs(h_use) * f_shrink
-        h_acc = torch.where(err < tol, torch.clamp(grow, max=max_step), torch.abs(h))
-        h_acc = torch.clamp(h_acc, min=min_step)
+        if fixed:
+            h_acc = torch.abs(h)
+        else:
+            h_acc = torch.where(err < tol, torch.clamp(grow, max=max_step), torch.abs(h))
+            h_acc = torch.clamp(h_acc, min=min_step)
         h_rej = torch.clamp(shrink, min=min_step)
         h = torch.where(do_accept, sgn * h_acc, torch.where(do_reject, sgn * h_rej, h))
 

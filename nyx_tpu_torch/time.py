@@ -3,14 +3,15 @@
 The host-side `Epoch` keeps two-part precision (integer TAI seconds past
 J2000 + fractional seconds); device code works with plain float64 seconds
 past J2000 in one scale (TAI or TDB). Scales: TAI (canonical), TT, TDB, UTC,
-GPS. The host code is copied from the reference; only the tensor branch of
-`tdb_minus_tt` uses torch. Julian dates, ISO strings and Gregorian output
-are not ported yet.
+GPS. The host code is copied from the reference, ISO strings (`isoformat`,
+`from_str`) and Gregorian output included; only the tensor branch of
+`tdb_minus_tt` uses torch. Julian dates are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass
 
 import torch
@@ -41,6 +42,20 @@ def _days_from_civil(y: int, m: int, d: int) -> int:
     doy = (153 * (m + (-3 if m > 2 else 9)) + 2) // 5 + d - 1
     doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
     return era * 146097 + doe - 719468
+
+
+def _civil_from_days(z: int):
+    """Inverse of _days_from_civil."""
+    z += 719468
+    era = (z if z >= 0 else z - 146096) // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = mp + (3 if mp < 10 else -9)
+    return y + (m <= 2), m, d
 
 
 # Seconds from Unix epoch (1970-01-01T00:00) to J2000 (2000-01-01T12:00), same scale.
@@ -141,6 +156,25 @@ class Epoch:
     def from_gregorian_utc(cls, y, mo, d, h=0, mi=0, s=0.0) -> "Epoch":
         return cls.from_gregorian(y, mo, d, h, mi, s, "UTC")
 
+    _ISO_RE = re.compile(
+        r"^(\d{4})-(\d{2})-(\d{2})[T ](\d{2}):(\d{2}):(\d{2}(?:\.\d+)?)"
+        r"\s*(UTC|TAI|TT|TDB|GPS|Z)?$"
+    )
+
+    @classmethod
+    def from_str(cls, s: str) -> "Epoch":
+        """An epoch from an ISO string, `YYYY-MM-DDTHH:MM:SS[.f] [scale]`
+        (UTC when the scale is left out or `Z`)."""
+        m = cls._ISO_RE.match(s.strip())
+        if not m:
+            raise ConfigError(f"cannot parse epoch {s!r}")
+        y, mo, d, h, mi = (int(m.group(i)) for i in range(1, 6))
+        sec = float(m.group(6))
+        scale = m.group(7) or "UTC"
+        if scale == "Z":
+            scale = "UTC"
+        return cls.from_gregorian(y, mo, d, h, mi, sec, scale)
+
     def to_tai_seconds(self) -> float:
         """Seconds past J2000 in TAI (collapsed to a single f64)."""
         return self.tai_int + self.tai_frac
@@ -151,6 +185,44 @@ class Epoch:
     def to_tdb_seconds(self) -> float:
         tt = self.to_tt_seconds()
         return tt + tdb_minus_tt(tt)
+
+    def to_gps_seconds(self) -> float:
+        return self.to_tai_seconds() + GPS_MINUS_TAI
+
+    def to_utc_seconds(self) -> float:
+        tai = self.to_tai_seconds()
+        # the leap offset at the UTC instant, by fixed point
+        off = tai_minus_utc(tai)
+        off = tai_minus_utc(tai - off)
+        return tai - off
+
+    def to_gregorian(self, scale="UTC"):
+        """(year, month, day, hour, minute, seconds) in `scale`."""
+        scale = scale.upper()
+        if scale == "UTC":
+            sec = self.to_utc_seconds()
+        elif scale == "TAI":
+            sec = self.to_tai_seconds()
+        elif scale == "TT":
+            sec = self.to_tt_seconds()
+        elif scale == "TDB":
+            sec = self.to_tdb_seconds()
+        elif scale == "GPS":
+            sec = self.to_gps_seconds()
+        else:
+            raise ConfigError(f"unknown time scale {scale}")
+        unix_s = sec + _J2000_MINUS_UNIX_S
+        days = math.floor(unix_s / SECONDS_PER_DAY)
+        sod = unix_s - days * SECONDS_PER_DAY
+        y, mo, d = _civil_from_days(int(days))
+        h = int(sod // 3600)
+        mi = int((sod - h * 3600) // 60)
+        s = sod - h * 3600 - mi * 60
+        return y, mo, d, h, mi, s
+
+    def isoformat(self, scale="UTC") -> str:
+        y, mo, d, h, mi, s = self.to_gregorian(scale)
+        return f"{y:04d}-{mo:02d}-{d:02d}T{h:02d}:{mi:02d}:{s:09.6f} {scale}"
 
     def __add__(self, other):
         if isinstance(other, Duration):
@@ -169,3 +241,6 @@ class Epoch:
         if isinstance(other, (int, float)):
             return Epoch._make2(self.tai_int, self.tai_frac - other)
         return NotImplemented
+
+    def __str__(self):
+        return self.isoformat("UTC")
