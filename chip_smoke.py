@@ -15,15 +15,17 @@ raises and exits non-zero:
    q_lo 0 and 3, a 12x6 rectangular field, 70x70 JGM3 split at q_lo 0 and
    3, and JGM3 extended with Kaula-rule coefficients to 120x120 and
    160x160, whose tables stream; each at B = 10,000, a ragged 37 and the
-   single lane of the OD leg's propagations; and phase 6d's 8x8 split field
-   at q_lo 0 on GEO radii, at its B = 25 and 4), and
-   time the kernel on the card at B = 10,000 beside its bound, and the twin
-   and the parent's kernel at 21x21;
+   single lane of the OD leg's propagations; phase 6d's 8x8 split field
+   at q_lo 0 on GEO radii, at its B = 25 and 4; and phase 6f's 80x80 lunar
+   field, streamed, at q_lo 3 on lunar radii, at B = 1, its STM batch 288
+   and 10,000), and time the kernel on the card at B = 10,000 beside its
+   bound, the lunar field at B = 1 and 288, and the twin and the parent's
+   kernel at 21x21;
 4. run the main path, after a 120 s warm-up arc, and count kernel launches;
-5. rerun 64 of its lanes over the day's first 6 h through the kernel and
+5. rerun 64 of its lanes over the day's first 2 h through the kernel and
    with the gravity twin forced, and compare finals;
-6. the same ensemble with 70x70 JGM3 split gravity over one hour, through
-   the kernel, and its 64-lane twin rerun;
+6. the same ensemble with 70x70 JGM3 split gravity over half an hour,
+   through the kernel, and its 64-lane twin rerun;
 6b. the bench's OD leg (bench.py:279-404) through the port: a one-day
    truth by `for_duration_with_traj`, DSS-65/34/13 range and Doppler every
    60 s by `TrackingArcSim`, and `ScanKalmanOD` (CKF, stm_jvp_degree 8,
@@ -46,7 +48,7 @@ raises and exits non-zero:
    4,435 s thruster under the eclipse-gated Ruggiero law, RK89 at 1e-10
    with a 30 s floor, over one day of its 30, after a 600 s warm-up, with
    its kernel launches counted and one EOM call's CUDA launches profiled;
-   then 4 of its lanes over the first 6 h through the kernel and the twin
+   then 4 of its lanes over the first 4 h through the kernel and the twin
    (final positions within 1e-6 km, the same final modes);
 6e. Config 1 of BASELINE.md, one spacecraft (examples/01_orbit_prop.py:
    50-93): (a) the example's scene (LEO, 21x21 JGM3 at f64, Sun and Moon,
@@ -65,6 +67,20 @@ raises and exits non-zero:
    for the five adaptive tableaus (tests/test_propagators_gmat.py's
    bounds) and RK4Fixed at 10 s (the day forward and back, and the arc of
    (a) against the CPU, are held on the CPU by tests/test_torch_config1.py);
+6f. Config 5 of BASELINE.md, lunar orbit determination (examples/
+   04_lro_od.py:57-238): the 80x80 Kaula-rule lunar field at split
+   precision (the kernel streams its table), an LRO-like 50 x 110 km polar
+   orbit in MOON_J2000, RK89 at 1e-10 with a 60 s max step, over a cut
+   depth of 4 h of its 24 h (two revolutions): the truth by
+   `for_duration_with_traj`, timed, with one EOM call profiled by module;
+   six polar IAU_MOON stations, two-way, simulated by `TrackingArcSim`; the
+   segmented EKF (SNC, 3-sigma gate, stm_jvp_degree 8) over the first
+   1,800 s, then over the whole arc, timed; guards: kernel launches on the
+   truth and the timed arc, no twin primal call on CUDA, the final estimate
+   within 100 m of the truth, range postfit RMS under 5 m; the truth's
+   first 600 s through the kernel and the twin (within 1e-9 km); and
+   `Trajectory.to_frame(IAU_MOON)` and `groundtrack` of the truth on the
+   card against the CPU (within 1e-9);
 7. print the command time and the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
@@ -103,14 +119,19 @@ KERNEL_REL_TOL = 2e-5
 # Split vs full-f64 envelope over one day (tests/test_dynamics.py:304), km;
 # also the OD leg's bound between its kernel and twin runs, row by row.
 TWIN_FINAL_TOL_KM = 1e-3
-# Config 2's twin rerun holds the kernel to the twin over this prefix of the day.
-TWIN_PREFIX_S = 6 * 3600.0
+# Config 2's twin rerun holds the kernel to the twin over this prefix of the
+# day (6 h until Config 5's phase needed the time), and phase 6's 70x70
+# ensemble runs over its first half hour (one hour until then).
+TWIN_PREFIX_S = 2 * 3600.0
+SECONDS_70X70 = 1800.0
 # Config 4's station keeping (examples/03_geo_analysis.py:248-350): its 25
 # lanes over one day of the 30, a NEXT-STEP-class thruster, and 4 lanes in
 # the kernel-vs-twin rerun.
 B_SK = 25
 B_SK_TWIN = 4
 SK_SECONDS = 86_400.0
+# its kernel-vs-twin rerun's prefix (6 h until Config 5's phase needed the time)
+SK_TWIN_PREFIX_S = 4 * 3600.0
 SK_THRUST_N = 0.472
 SK_ISP_S = 4435.0
 # Config 4's kernel-vs-twin bound over the 6 h prefix, km. At GEO the
@@ -141,12 +162,26 @@ GMAT_TRUTH = {
                    0.049_097_015_227_526_38, -4.185_093_356_859_808, 5.848_940_840_578_1),
 }
 GMAT_TOL = {"Dormand45": 1e-7, "CashKarp45": 1e-5}  # 1e-8 for the others
-# Radii of the kernel-vs-twin positions: the main path's LEO, and GEO with
-# Config 4's 3 km sma spread and its ecc objective.
+# Radii of the kernel-vs-twin positions: the main path's LEO, GEO with
+# Config 4's 3 km sma spread and its ecc objective, and Config 5's lunar
+# orbit (its perilune and apolune).
 LEO_RADII_KM = (6_700.0, 7_500.0)
 GEO_RADII_KM = (42_100.0, 42_230.0)
+LUNAR_RADII_KM = (1_787.4, 1_847.4)
+# Config 5's stage 2 runs one RK89 step of the [M, 90] STM EOM a segment,
+# M <= segment_rows = 32 rows; its 9 forward-mode passes fold into the
+# batch, so the kernel's primal sees B = 9 M lanes.
+B_EX04_STM = 9 * 32
 # The bench's OD guard: final position error against the truth (bench.py:376).
 OD_GUARD_KM = 0.1
+# Config 5 (examples/04_lro_od.py): the lunar GM of the field and the orbit's
+# frame, the example's 24 h arc cut to 4 h (two revolutions of the 1.93 h
+# orbit; 6 h took phase 6f 225 s on an NVIDIA H100 80GB HBM3 at 700 W), the
+# range postfit RMS guard, km, and the twin witness's prefix.
+EX04_MU = 4902.800066
+EX04_HOURS = 4.0
+EX04_POSTFIT_RMS_KM = 5e-3
+EX04_TWIN_PREFIX_S = 600.0
 # f32 against f64 filter algebra (tests/test_od.py:1782-1792): positions
 # (km) and sigmas (relative).
 OD_F32_POS_KM = 2e-3
@@ -262,6 +297,92 @@ def extend_kaula(stor, degree: int, seed: int):
     return dataclasses.replace(stor, c_nm=c_nm, s_nm=s_nm)
 
 
+def kaula_moon_field(n_max: int = 80, seed: int = 7):
+    """examples/04_lro_od.py:61-79 as numpy, into the port's
+    GravityFieldData: a synthetic lunar field with fully normalized C/S of
+    Kaula-rule magnitude (standard deviation 3.5e-4 / n^2) from
+    `np.random.default_rng(seed)`, drawn degree by degree, C before S at
+    each order, the real lunar J2 (C20 = -9.08e-5), GM 4,902.800066 km^3/s^2,
+    radius 1,737.4 km, in IAU_MOON."""
+    from nyx_tpu_torch import Frames
+    from nyx_tpu_torch.io.gravity import GravityFieldData
+
+    rng = np.random.default_rng(seed)
+    c = np.zeros((n_max + 1, n_max + 1))
+    s = np.zeros((n_max + 1, n_max + 1))
+    c[0, 0] = 1.0
+    for n in range(2, n_max + 1):
+        sigma = 3.5e-4 / n**2
+        for m in range(0, n + 1):
+            c[n, m] = rng.normal(0, sigma)
+            if m > 0:
+                s[n, m] = rng.normal(0, sigma)
+    c[2, 0] = -9.08e-5
+    return GravityFieldData(c_nm=c, s_nm=s, mu_km3_s2=EX04_MU, radius_km=1737.4, frame=Frames.IAU_MOON)
+
+
+def ex04_scene(stor, precision: str = "split", *, device="cuda"):
+    """The scene of examples/04_lro_od.py:81-238 through the port's own
+    names, on the field `stor` (`kaula_moon_field`): the LRO-like polar
+    orbit (apsis radii 1,847.4 / 1,787.4 km, i 89.7 deg, RAAN 270 deg) in
+    MOON_J2000 at the example's GM, RK89 at a 60 s max step and 1e-10, the
+    six polar stations (IAU_MOON, two-way with a 60 s integration time, 5
+    deg mask, range 2 m and Doppler 3 mm/s white noise), TrkConfig(60 s,
+    min_samples=3), the RIC uncertainty with one draw from
+    `np.random.default_rng(42)`, and the filter factory (segmented EKF,
+    SNC 1e-16 km^2/s^4 for 3,600 s, 3-sigma gate, stm_jvp_degree 8).
+    Returns a namespace of them; `propagator(backend)` and `od(backend)`
+    build the propagator and the filter with that gravity backend."""
+    from types import SimpleNamespace
+
+    from nyx_tpu_torch import Epoch, Frames, Orbit, Spacecraft
+    from nyx_tpu_torch.dynamics import Harmonics, OrbitalDynamics, SpacecraftDynamics
+    from nyx_tpu_torch.ephem import Almanac
+    from nyx_tpu_torch.od import (
+        GroundStation, MeasurementType, ProcessNoise, ScanKalmanOD, Scheduler, SpacecraftUncertainty,
+        StochasticNoise, TrkConfig, WhiteNoise,
+    )
+    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
+
+    epoch = Epoch.from_gregorian_utc(2024, 1, 1, 0, 0, 0)
+    moon_j2000 = Frames.MOON_J2000
+    orbit = Orbit.keplerian_apsis_radii(1737.4 + 110.0, 1737.4 + 50.0, 89.7, 270.0, 30.0, 0.0, epoch,
+                                        moon_j2000.with_mu_km3_s2(EX04_MU))
+    truth = Spacecraft.from_orbit(orbit)
+
+    def propagator(backend):
+        dyn = SpacecraftDynamics.new(OrbitalDynamics.from_model(
+            Harmonics.from_stor(stor, precision=precision, backend=backend), moon_j2000))
+        return Propagator.rk89(dyn, IntegratorOptions(max_step_s=60.0, tolerance=1e-10))
+
+    def station(name, lat, lon):
+        gs = GroundStation(name, lat, lon, 0.0, frame=Frames.IAU_MOON, elevation_mask_deg=5.0,
+                           integration_time_s=60.0)
+        gs.stochastic_noises = {MeasurementType.RANGE_KM: StochasticNoise(WhiteNoise(2.0e-3)),
+                                MeasurementType.DOPPLER_KM_S: StochasticNoise(WhiteNoise(3.0e-6))}
+        return gs
+
+    stations = [station("Shackleton", -89.5, 0.0), station("Malapert", -86.0, 2.9),
+                station("Peary", 88.6, 33.0), station("Amundsen", -84.5, 69.9),
+                station("Whipple", 89.1, 120.0), station("Cabeus", -85.3, -42.1)]
+    cfg = TrkConfig(sampling_s=60.0, scheduler=Scheduler(min_samples=3))
+    almanac = Almanac()
+    est0 = SpacecraftUncertainty(nominal=truth, frame="ric", x_km=0.1, y_km=0.1, z_km=0.1,
+                                 vx_km_s=1e-5, vy_km_s=1e-5, vz_km_s=1e-5).to_estimate()
+    draw = np.random.default_rng(42).multivariate_normal(np.zeros(9), est0.covar)
+    est0.nominal = truth.set_vector(epoch, truth.to_vector() + draw)
+
+    def od(backend):
+        return ScanKalmanOD(propagator(backend), stations,
+                            types=(MeasurementType.RANGE_KM, MeasurementType.DOPPLER_KM_S),
+                            variant="ekf", process_noise=(ProcessNoise.from_diag([1e-16] * 3, 3600.0),),
+                            resid_rejection_sigmas=3.0, almanac=almanac, stm_jvp_degree=8,
+                            device=device)
+
+    return SimpleNamespace(truth=truth, propagator=propagator, stations=stations, cfg=cfg,
+                           almanac=almanac, est0=est0, od=od)
+
+
 def _parent_gravity(root: Path):
     """The `gravity_pines` module of the port in the checkout at `root`,
     imported under another package name beside this one: its own wrapper,
@@ -284,7 +405,10 @@ def phase_kernel_vs_twin(gp, fields, parent):
     cases = [("21x21", 0, leo), ("21x21", 3, leo), ("12x6", 0, leo), ("70x70", 0, leo),
              ("70x70", 3, leo), ("120x120", 3, leo), ("160x160", 3, leo),
              # phase 6d's field, batches and radii, at the q_lo its split field passes
-             ("8x8", 0, ((B_SK, B_SK_TWIN), GEO_RADII_KM))]
+             ("8x8", 0, ((B_SK, B_SK_TWIN), GEO_RADII_KM)),
+             # phase 6f's field at lunar radii: the truth's and stage 1's single
+             # lane, stage 2's [M, 90] STM batch and the main path's B
+             ("moon80x80", 3, ((1, B_EX04_STM, B_MAIN), LUNAR_RADII_KM))]
     for name, q_lo, (batches, radii) in cases:
         h = fields[name]
         tab = h.packed_table(0, torch.float32, "cuda")
@@ -320,6 +444,16 @@ def phase_kernel_vs_twin(gp, fields, parent):
              f"({bound_by}; {pines_ops_per_lane(tab.shape[0], kw['W'], 0)} operations a lane), "
              f"{100 * bound / ms:.1f} % of bound")
         out[name] = (ms, bound, bound_by)
+    h = fields["moon80x80"]
+    tab = h.packed_table(0, torch.float32, "cuda")
+    kw = h.pines_args()
+    for B in (1, B_EX04_STM):
+        r_moon = torch.tensor(_body_fixed(B, 2000 + B, LUNAR_RADII_KM), dtype=torch.float32, device="cuda")
+        ms = _time_ms(lambda: gp.pines_accel_cuda(r_moon, tab, 3, **kw))
+        bound, bound_by = pines_bound_ms(B, tab.shape[0], kw["W"], tab.shape[2], 3)
+        _log(f"moon80x80 split q_lo=3 at B={B}: kernel {ms:.4f} ms per call, bound {bound:.6f} ms "
+             f"({bound_by}), {100 * bound / ms:.2f} % of bound")
+        out[f"moon80x80_b{B}"] = (ms, bound, bound_by)
     h = fields["21x21"]
     tab = h.packed_table(0, torch.float32, "cuda")
     kw = h.pines_args()
@@ -655,22 +789,15 @@ def _sk_scene(stor8):
     return sc, propagator
 
 
-def _eom_launch_count(prop, sc, alm, y0):
-    """CUDA kernels one call of `prop`'s EOM (guided or not) launches on the
-    [B, N] states `y0` (numpy), from torch.profiler (device-side kernel
-    events, the host's kernel-launch calls, and the top-level aten ops)."""
+def _kernel_count(fn):
+    """CUDA kernels one call of `fn` launches, from torch.profiler: (device-
+    side kernel events, the host's kernel-launch calls, top-level aten ops)."""
     from torch.profiler import ProfilerActivity, profile
 
-    y = torch.as_tensor(y0, device="cuda")
-    dyn = prop.dynamics
-    ctx = dyn.build_context(sc.epoch, 600.0, alm, device="cuda")
-    eom = dyn.make_eom(thruster=sc.thruster)
-    p = dict(dry_mass_kg=sc.dry_mass_kg, srp_area_m2=sc.srp_area_m2, drag_area_m2=sc.drag_area_m2)
-    t = torch.zeros(y.shape[0], dtype=torch.float64, device="cuda")
-    eom(t, y, ctx, p)  # the first call fills the field's table cache
+    fn()  # the first call fills caches (the field's table, say)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eom(t, y, ctx, p)
+        fn()
         torch.cuda.synchronize()
     events = prof.events()
     kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in events)
@@ -678,6 +805,19 @@ def _eom_launch_count(prop, sc, alm, y0):
                           "cuLaunchKernelEx") for e in events)
     ops = sum(e.name.startswith("aten::") and e.cpu_parent is None for e in events)
     return kernels, host, ops
+
+
+def _eom_launch_count(prop, sc, alm, y0):
+    """CUDA kernels one call of `prop`'s EOM (guided or not) launches on the
+    [B, N] states `y0` (numpy), from torch.profiler (device-side kernel
+    events, the host's kernel-launch calls, and the top-level aten ops)."""
+    y = torch.as_tensor(y0, device="cuda")
+    dyn = prop.dynamics
+    ctx = dyn.build_context(sc.epoch, 600.0, alm, device="cuda")
+    eom = dyn.make_eom(thruster=sc.thruster)
+    p = dict(dry_mass_kg=sc.dry_mass_kg, srp_area_m2=sc.srp_area_m2, drag_area_m2=sc.drag_area_m2)
+    t = torch.zeros(y.shape[0], dtype=torch.float64, device="cuda")
+    return _kernel_count(lambda: eom(t, y, ctx, p))
 
 
 def phase_geo_sk(gp, stor8):
@@ -734,7 +874,7 @@ def phase_geo_sk(gp, stor8):
         raise RuntimeError(f"station keeping: prop used outside (0, {full_day_kg:.4f}] kg: {used}")
 
     y0 = res.y_initial[:B_SK_TWIN]
-    end = sc.epoch + TWIN_PREFIX_S
+    end = sc.epoch + SK_TWIN_PREFIX_S
     t0 = time.perf_counter()
     kernel = MonteCarlo(mvn, seed=3).run_until_epoch(prop, alm, end, B_SK_TWIN, device="cuda", _y0=y0)
     t1 = time.perf_counter()
@@ -745,7 +885,7 @@ def phase_geo_sk(gp, stor8):
         raise RuntimeError(f"station keeping reruns: {kernel.n_ok} and {twin.n_ok} of {B_SK_TWIN} ok")
     d_km = float(np.linalg.norm(twin.y_final[:, :3] - kernel.y_final[:, :3], axis=1).max())
     same_modes = bool(np.array_equal(twin.y_final[:, 9], kernel.y_final[:, 9]))
-    _log(f"station keeping twin rerun of {B_SK_TWIN} lanes over {TWIN_PREFIX_S:g} s (kernel {t1 - t0:.1f} s, "
+    _log(f"station keeping twin rerun of {B_SK_TWIN} lanes over {SK_TWIN_PREFIX_S:g} s (kernel {t1 - t0:.1f} s, "
          f"{kernel.iterations} iterations; twin {t2 - t1:.1f} s, {twin.iterations} iterations): max final "
          f"position difference {d_km:.3e} km, final modes {kernel.y_final[:, 9].tolist()} (kernel) and "
          f"{twin.y_final[:, 9].tolist()} (twin)")
@@ -868,6 +1008,144 @@ def phase_config1(gp, device="cuda"):
                 f64_calls=f64_calls, eom_kernels=kernels, gmat=gmat)
 
 
+def phase_config5(gp, device="cuda"):
+    """Config 5 on `device` (the card; "cpu" rehearses it): ex04's scene at
+    full width (the 80x80 split field, six stations two-way, SNC, the
+    3-sigma gate, stm_jvp_degree 8) over EX04_HOURS of its 24 h: the truth
+    by `for_duration_with_traj`, timed, with one EOM call profiled; the
+    simulated arc; `process_arc` over the first 1,800 s, then over the
+    whole arc, timed; the guards; the truth's first EX04_TWIN_PREFIX_S
+    through the kernel and the twin; and `to_frame(IAU_MOON)` and
+    `groundtrack` of the truth on `device` against the CPU. Returns the
+    summary's numbers."""
+    from nyx_tpu_torch import Epoch, Frames
+    from nyx_tpu_torch.od import MeasurementType, TrackingArcSim
+
+    t_phase = time.perf_counter()
+    seconds = EX04_HOURS * 3600.0
+    stor = kaula_moon_field(80)
+    scene = ex04_scene(stor, "split", device=device)
+    prop, alm = scene.propagator("auto"), scene.almanac
+    field = prop.dynamics.orbital_dyn.models[0]
+    tab = field.packed_table(0, torch.float32, device)
+    plan = gp.pines_launch_plan(tab.shape[0], tab.shape[2])
+    _log(f"Config 5 field: {field.max_degree}x{field.max_order} split in IAU_MOON, table {tuple(tab.shape)}, launch plan "
+         f"{'whole table' if plan.whole else f'streamed, buffers=2, chunk_steps={plan.chunk_steps}'}, "
+         f"{plan.warps} warps, {plan.smem_bytes} B shared")
+    prop.with_state(scene.truth, alm, device=device).for_duration(60.0)  # warm-up: caches and allocator
+
+    # one EOM call at B = 1 by module: the IAU Moon DCM, the field (DCM,
+    # J2+J3, the kernel), the whole EOM
+    y1 = torch.as_tensor(scene.truth.to_vector()[None], device=device)
+    t1 = torch.zeros(1, dtype=torch.float64, device=device)
+    ctx = prop.dynamics.build_context(scene.truth.epoch, 600.0, alm, device=device)
+    t_tdb = t1 + scene.truth.epoch.to_tdb_seconds()
+    eom = prop.dynamics.make_eom()
+    counts = {
+        "IAU_MOON DCM": _kernel_count(lambda: Frames.IAU_MOON.dcm_from_j2000(t_tdb)),
+        "Harmonics.accel (DCM, J2+J3, kernel)": _kernel_count(
+            lambda: field.accel(ctx, t_tdb, y1[:, 0:3], y1[:, 3:6])),
+        "whole EOM": _kernel_count(lambda: eom(t1, y1, ctx, dict(dry_mass_kg=0.0, srp_area_m2=0.0,
+                                                                   drag_area_m2=0.0))),
+    }
+    for name, (kernels, host, ops) in counts.items():
+        _log(f"Config 5 EOM at B=1, {name} (torch.profiler): {kernels} CUDA kernels, {host} launch calls "
+             f"from the host, {ops} top-level aten ops")
+
+    # 1. the truth
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    inst = prop.with_state(scene.truth, alm, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, traj = inst.for_duration_with_traj(seconds)
+    torch.cuda.synchronize()
+    truth_wall = time.perf_counter() - t0
+    truth_launches, truth_twin = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
+    res = inst.last_result
+    ms_iter = 1e3 * truth_wall / res.iterations
+    _log(f"Config 5 truth ({_card_line()}), ex04 over {EX04_HOURS:g} h of its 24 h, B=1: wall {truth_wall:.3f} s, "
+         f"{len(traj)} nodes, accepted {int(res.n_accepted[0])}, rejected {int(res.n_rejected[0])}, "
+         f"integrator iterations {res.iterations}, {ms_iter:.3f} ms an iteration; kernel launches "
+         f"{truth_launches}, twin calls on CUDA {truth_twin}")
+    if not np.isfinite(traj.ys).all() or traj.ts[-1] != seconds:
+        raise RuntimeError("Config 5 truth: nodes are not finite or the arc is short")
+
+    # 2. the arc
+    t0 = time.perf_counter()
+    arc = TrackingArcSim.with_seed(scene.stations, traj, {g.name: scene.cfg for g in scene.stations}, seed=4,
+                                   device=device).generate_measurements(alm)
+    _log(f"Config 5 arc: {len(arc)} two-way rows from {len(set(arc.tracker_idx.tolist()))} of "
+         f"{len(scene.stations)} stations in {time.perf_counter() - t0:.3f} s")
+
+    # 3. the filter: a warm-up over the first 1,800 s, then the whole arc, timed
+    od = scene.od("auto")
+    od.process_arc(scene.est0, _head(arc, 1800.0))
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    gp.pines_tangent_torch.cuda_calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = od.process_arc(scene.est0, arc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = gp.pines_accel_cuda.launches
+    twin_calls, tangent_calls = gp.pines_accel_torch.cuda_calls, gp.pines_tangent_torch.cuda_calls
+    w = od.stage_walls_s
+    rate = len(arc) / wall
+    truth_fin = traj.at(Epoch.from_tai_seconds_j2000(float(sol.epochs_tai_s[-1]))).to_vector()
+    err_km = float(np.linalg.norm(sol.final_state()[:3] - truth_fin[:3]))
+    acc = ~np.asarray(sol.rejected)
+    ridx = sol.types.index(MeasurementType.RANGE_KM)
+    rms_km = float(np.sqrt(np.mean(sol.postfit[acc, ridx] ** 2)))
+    beyond = 100.0 * float(np.mean(sol.ratio > 3.0))
+    _log(f"Config 5 filter ({_card_line()}), segmented EKF, timed process_arc:")
+    _log(f"  rows {len(arc)}, segments {w['segments']}, s1 iterations {w['s1_iterations']}")
+    _log(f"  wall {wall:.3f} s, {rate:.2f} rows/s")
+    _log("  stage walls summed over the segments: " + ", ".join(f"{k} {w[k]:.3f} s" for k in ("s1", "s2", "s3", "s4")))
+    _log(f"  kernel launches {launches}, twin primal calls on CUDA {twin_calls}, twin tangent calls {tangent_calls}")
+    _log(f"  final position error vs truth {err_km * 1e3:.3f} m, sigma (max axis) "
+         f"{1e3 * float(np.sqrt(np.diag(sol.final_covar())[:3]).max()):.3f} m")
+    _log(f"  range postfit RMS {rms_km * 1e3:.3f} m; {int((~acc).sum())} rows rejected by the 3-sigma gate; "
+         f"{beyond:.2f} % of residual ratios beyond 3 sigma")
+    if sol.y_est.shape != (len(arc), 9) or not np.isfinite(sol.y_est).all():
+        raise RuntimeError("Config 5 filter: estimates are not finite [M, 9]")
+    if truth_launches <= 0 or launches <= 0 or truth_twin != 0 or twin_calls != 0:
+        raise RuntimeError(f"Config 5 did not run through the kernel: {truth_launches} and {launches} launches, "
+                           f"{truth_twin} and {twin_calls} twin calls on CUDA")
+    if not err_km < OD_GUARD_KM:
+        raise RuntimeError(f"Config 5 filter diverged: {err_km * 1e3:.1f} m final error")
+    if not rms_km < EX04_POSTFIT_RMS_KM:
+        raise RuntimeError(f"Config 5 range postfit RMS {rms_km * 1e3:.3f} m")
+
+    # 5. the twin witness: the truth's first EX04_TWIN_PREFIX_S through the
+    # kernel and with the twin forced
+    finals = {}
+    for backend in ("auto", "torch"):
+        finals[backend] = scene.propagator(backend).with_state(scene.truth, alm, device=device).for_duration(
+            EX04_TWIN_PREFIX_S).orbit.r_km
+    d_twin = float(np.linalg.norm(finals["auto"] - finals["torch"]))
+    _log(f"Config 5 twin witness over the first {EX04_TWIN_PREFIX_S:g} s: final positions {d_twin:.3e} km apart")
+    if not d_twin < 1e-9:
+        raise RuntimeError(f"Config 5: kernel and twin truths differ by {d_twin} km")
+
+    # 6. the frame transform and the ground track on the card against the CPU
+    body = traj.to_frame(Frames.IAU_MOON, device=device)
+    body_cpu = traj.to_frame(Frames.IAU_MOON, device="cpu")
+    track = traj.groundtrack(step=60.0, device=device)
+    track_cpu = traj.groundtrack(step=60.0, device="cpu")
+    d_body = float(np.abs(body.ys[:, :6] - body_cpu.ys[:, :6]).max())
+    d_track = max(float(np.abs(a - b).max()) for a, b in zip(track[1:], track_cpu[1:]))
+    _log(f"Config 5 to_frame(IAU_MOON) of {len(traj)} nodes and groundtrack of {len(track[0])} samples "
+         f"(altitude {track[3].min():.3f}-{track[3].max():.3f} km): {d_body:.3e} km and {d_track:.3e} "
+         f"(deg, km) from the CPU")
+    if not (d_body < 1e-9 and d_track < 1e-9):
+        raise RuntimeError(f"Config 5: the card's to_frame / groundtrack differ from the CPU's by {d_body}, {d_track}")
+    _log(f"Config 5 phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, truth_launches=truth_launches, rows_per_s=rate, truth_ms_per_iter=ms_iter,
+                rows=len(arc), wall=wall, err_km=err_km)
+
+
 def phase_gmat(device="cuda"):
     """GMAT's one-day two-body truth through `integrator.propagate` on
     `device`: the five adaptive tableaus (RSSCartesianState, 0.1-30 s,
@@ -964,6 +1242,7 @@ def main() -> None:
         "70x70": Harmonics.from_stor(stor70, "split"),
         "120x120": Harmonics.from_stor(extend_kaula(stor70, 120, 7), "split"),
         "160x160": Harmonics.from_stor(extend_kaula(stor70, 160, 8), "split"),
+        "moon80x80": Harmonics.from_stor(kaula_moon_field(80), "split"),
     }
     k3 = phase_kernel_vs_twin(gp, fields, parent)
 
@@ -997,8 +1276,8 @@ def main() -> None:
         raise RuntimeError(f"warm-up: {warm.n_ok}/{warm.n_runs} lanes ok")
     launches = run_and_rerun(42, mvn, prop21, alm, epoch, args.duration_s, gp, "main path")
 
-    # phase 6: 70x70 JGM3 split over one hour through the kernel, and its twin rerun
-    launches70 = run_and_rerun(42, mvn, propagator_for(stor70), alm, epoch, 3600.0, gp, "70x70 path")
+    # phase 6: 70x70 JGM3 split over half an hour through the kernel, and its twin rerun
+    launches70 = run_and_rerun(42, mvn, propagator_for(stor70), alm, epoch, SECONDS_70X70, gp, "70x70 path")
 
     # phase 6b: the OD leg; 6c: the flagship OD leg on its truth
     stor21 = GravityFieldData.from_cof(jgm3, 21, 21, True, Frames.IAU_EARTH)
@@ -1010,6 +1289,9 @@ def main() -> None:
 
     # phase 6e: Config 1, one spacecraft, and the GMAT truth
     phase_config1(gp)
+
+    # phase 6f: Config 5, lunar orbit determination on the 80x80 field
+    config5 = phase_config5(gp)
 
     # phase 7: summary
     _log(f"chip_smoke.py command time: {time.perf_counter() - _T_START:.1f} s")
@@ -1045,6 +1327,14 @@ def main() -> None:
         "od_flagship_rows_per_s": flagship["rows_per_s"],
         "launches_geo_sk": geo_sk["launches"],
         "geo_sk_traj_per_s": geo_sk["traj_per_s"],
+        "launches_config5": config5["launches"],
+        "launches_config5_truth": config5["truth_launches"],
+        "config5_rows_per_s": config5["rows_per_s"],
+        "config5_truth_ms_per_iter": config5["truth_ms_per_iter"],
+        "ms_80x80_b1": k3["times"]["moon80x80_b1"][0],
+        "bound_ms_80x80_b1": k3["times"]["moon80x80_b1"][1],
+        f"ms_80x80_b{B_EX04_STM}": k3["times"][f"moon80x80_b{B_EX04_STM}"][0],
+        f"bound_ms_80x80_b{B_EX04_STM}": k3["times"][f"moon80x80_b{B_EX04_STM}"][1],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

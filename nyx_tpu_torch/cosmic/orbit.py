@@ -176,6 +176,15 @@ class Orbit:
         )
         return cls(r.numpy(), v.numpy(), epoch, frame)
 
+    @classmethod
+    def keplerian_apsis_radii(
+        cls, ra_km, rp_km, inc_deg, raan_deg, aop_deg, ta_deg, epoch: Epoch, frame: Frame
+    ) -> "Orbit":
+        """`keplerian` from the apoapsis and periapsis radii (km)."""
+        sma = (ra_km + rp_km) / 2
+        ecc = (ra_km - rp_km) / (ra_km + rp_km)
+        return cls.keplerian(sma, ecc, inc_deg, raan_deg, aop_deg, ta_deg, epoch, frame)
+
     def _vector(self):
         """[9] float64 CPU tensor: position, velocity and three zeros."""
         return torch.from_numpy(np.concatenate([self.r_km, self.v_km_s, np.zeros(3)]).astype(np.float64))

@@ -4,7 +4,11 @@ Port of nyx_tpu/ephem/almanac.py restricted to the built-in analytic series
 (SPK/DAF kernels are not ported yet). For device use an `EphemTable` re-fits
 every requested body's position relative to the integration center as
 uniform-interval Chebyshev polynomials over the propagation window, so the
-in-loop lookup is a record select plus Clenshaw.
+in-loop lookup is a record select plus Clenshaw (`posvel` adds the
+velocity, the Chebyshev derivative). On the host, `state` gives a body's
+position and velocity about another (velocity by central differences of
+the analytic series, as the reference's analytic fallback), and
+`translate_to` re-centres an orbit between J2000-aligned frames.
 """
 
 from __future__ import annotations
@@ -15,9 +19,11 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..constants import NAIF
+from ..errors import ConfigError
 from ..time import Epoch
 from . import analytic
-from .chebyshev import eval_chebyshev, fit_chebyshev
+from .chebyshev import eval_chebyshev, eval_chebyshev_deriv, fit_chebyshev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +63,14 @@ class EphemTable:
         rec, tau = self._rec_tau(t_tdb_s, dtype)
         return eval_chebyshev(self.coeffs[idx].to(dtype)[rec.long()], tau)
 
+    def posvel(self, idx: int, t_tdb_s):
+        """(position [.., 3] km, velocity [.., 3] km/s) of body `idx` at TDB
+        seconds [..] (f64 tensor), in float64: the velocity is the
+        Chebyshev derivative."""
+        rec, tau = self._rec_tau(t_tdb_s, torch.float64)
+        c = self.coeffs[idx][rec.long()]
+        return eval_chebyshev(c, tau), eval_chebyshev_deriv(c, tau) * (2.0 / self.intlen)
+
 
 class Almanac:
     """Host-side analytic ephemeris source and device-table factory."""
@@ -66,6 +80,36 @@ class Almanac:
         t = np.atleast_1d(np.asarray(t_tdb_s, dtype=np.float64))
         out = analytic.state_between(target, center, t)
         return out.reshape(np.shape(t_tdb_s) + (3,))
+
+    def state(self, target: int, center: int, epoch: Epoch):
+        """(r [3] km, v [3] km/s) of `target` about `center` in EME2000 at
+        `epoch`: each body's heliocentric state from the analytic series
+        (the SSB's is zero, as the reference's chain ends at the Sun),
+        velocities by central differences with h = 2 s."""
+        t = np.atleast_1d(epoch.to_tdb_seconds())
+        h = 2.0
+
+        def chain(body):
+            if body == NAIF.SSB:
+                return np.zeros(t.shape + (3,)), np.zeros(t.shape + (3,))
+            vel = (analytic.heliocentric(body, t + h) - analytic.heliocentric(body, t - h)) / (2.0 * h)
+            return analytic.heliocentric(body, t), vel
+
+        (rt, vt), (rc, vc) = chain(target), chain(center)
+        return (rt - rc)[0], (vt - vc)[0]
+
+    def translate_to(self, orbit, frame):
+        """`orbit` re-centred on `frame`'s body. Both frames must be
+        J2000-aligned unless the centres match (then only the frame
+        changes); a rotating frame needs `Trajectory.to_frame`."""
+        if orbit.frame.center == frame.center:
+            return dataclasses.replace(orbit, frame=frame)
+        if not (orbit.frame.is_inertial and frame.is_inertial):
+            raise ConfigError("translate_to supports J2000-aligned frames only; use "
+                              "Trajectory.to_frame for rotating-frame output")
+        r_c, v_c = self.state(orbit.frame.center, frame.center, orbit.epoch)
+        return dataclasses.replace(orbit, r_km=np.asarray(orbit.r_km) + r_c,
+                                   v_km_s=np.asarray(orbit.v_km_s) + v_c, frame=frame)
 
     def build_table(
         self,

@@ -1,7 +1,8 @@
 """Chebyshev fitting (host, numpy) and evaluation (device, torch).
 
 Port of nyx_tpu/ephem/chebyshev.py: `fit_chebyshev` is copied unchanged;
-`eval_chebyshev` is the Clenshaw recurrence on torch tensors.
+`eval_chebyshev` is the Clenshaw recurrence on torch tensors, and
+`eval_chebyshev_deriv` its derivative in tau.
 """
 
 from __future__ import annotations
@@ -47,3 +48,15 @@ def eval_chebyshev(coeffs, tau):
     for n in range(D - 1, 0, -1):
         b1, b2 = coeffs[..., n] + x2 * b1 - b2, b1
     return coeffs[..., 0] + tau[..., None] * b1 - b2
+
+
+def eval_chebyshev_deriv(coeffs, tau):
+    """d/dtau of `eval_chebyshev`: sum_n c_n n U_{n-1}(tau) by the
+    second-kind Clenshaw recurrence (T_n' = n U_{n-1})."""
+    D = coeffs.shape[-1]
+    x2 = 2.0 * tau[..., None]
+    b1 = torch.zeros_like(coeffs[..., 0])
+    b2 = torch.zeros_like(b1)
+    for n in range(D - 1, 0, -1):
+        b1, b2 = n * coeffs[..., n] + x2 * b1 - b2, b1
+    return b1

@@ -23,10 +23,12 @@ from .time import Epoch
 
 
 def harmonics_from_tables(xs, diag, N: int, M: int, mu: float, radius: float,
-                          precision: str, j2: float, j3: float) -> Harmonics:
-    """The port's Harmonics (an Earth field, in IAU_EARTH) from the
-    reference object's `_tables` (xs, diag, N, M) and constants, so both
-    compute from identical rows."""
+                          precision: str, j2: float, j3: float,
+                          frame: Frame = Frames.IAU_EARTH) -> Harmonics:
+    """The port's Harmonics from the reference object's `_tables` (xs,
+    diag, N, M), its constants `mu` and `radius` as they are, and the
+    body-fixed `frame` its coefficients live in (an Earth field's
+    IAU_EARTH unless given), so both compute from identical rows."""
     xs = {k: np.asarray(v) for k, v in xs.items()}
     return Harmonics(
         _tables=(xs, np.asarray(diag), int(N), int(M)),
@@ -34,7 +36,7 @@ def harmonics_from_tables(xs, diag, N: int, M: int, mu: float, radius: float,
         radius_km=float(radius),
         max_degree=int(N),
         max_order=int(M),
-        frame=Frames.IAU_EARTH,
+        frame=frame,
         precision=precision,
         j2=float(j2),
         j3=float(j3),

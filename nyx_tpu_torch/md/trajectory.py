@@ -6,24 +6,34 @@ and a `Trajectory` built from a propagation's captured nodes with the
 (linear in the other columns), including the window's thinning of
 near-coincident nodes; its queries (first/last, every, every_between,
 sample_values, resample, rebuild, filter_by_*) and its parquet and OEM
-export (io/export.py). Frame transforms, ground tracks, RIC differences,
+export (io/export.py); the frame transform (`to_frame`: a centre change
+through the almanac, a rotation through J2000 with the transport term
+from `torch.func.jvp` of the DCM), the ground track and the RIC
+difference to another trajectory (nyx_tpu/md/trajectory.py:238-352).
 `from_bsp`, `to_ephemeris` and `from_parquet` are not ported yet.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Iterator
 
 import numpy as np
 import torch
 
+from ..constants import NAIF
+from ..cosmic.frames import Frames
+from ..cosmic.orbit import Orbit, ric_dcm
+from ..cosmic.rotations import apply_dcm, apply_dcm_t
 from ..cosmic.spacecraft import Spacecraft
-from ..errors import TrajError
+from ..errors import ConfigError, TrajError
 from ..time import Duration, Epoch
 from . import param as param_mod
 
 INTERPOLATION_SAMPLES = 13
+# The body-fixed frame of each centre with an IAU model (groundtrack).
+_IAU_FRAMES = {NAIF.EARTH: Frames.IAU_EARTH, NAIF.MOON: Frames.IAU_MOON, NAIF.MARS: Frames.IAU_MARS,
+               NAIF.SUN: Frames.IAU_SUN}
 
 
 def hermite_eval(ts, ys, yds, t):
@@ -204,6 +214,90 @@ class Trajectory:
         if not np.any(keep):
             raise TrajError("no trajectory nodes in the requested window")
         return Trajectory(self.epoch0, self.ts[keep], self.ys[keep], self.template)
+
+    # ---------------- frames and comparisons -------------------------
+    def to_frame(self, frame, almanac=None, *, device="cuda") -> "Trajectory":
+        """Every node in `frame`: moved to its centre (the almanac's
+        positions, velocities by central differences with h = 16 s), then
+        rotated old -> J2000 -> new on `device`, velocities with the
+        transport term dDCM/dt @ r of each rotating frame."""
+        old = self.template.frame
+        ys = np.array(self.ys, copy=True)
+        t_tdb = self.epoch0.to_tdb_seconds() + self.ts
+        if frame.center != old.center:
+            if almanac is None:
+                raise TrajError("changing central bodies requires an almanac")
+            h = 16.0
+            ys[:, 0:3] += almanac.position(old.center, frame.center, t_tdb)
+            ys[:, 3:6] += (almanac.position(old.center, frame.center, t_tdb + h)
+                           - almanac.position(old.center, frame.center, t_tdb - h)) / (2 * h)
+        if frame.orientation != old.orientation:
+            f64 = dict(dtype=torch.float64, device=device)
+            tt = torch.as_tensor(t_tdb, **f64)
+            ones = torch.ones_like(tt)
+            dcm_old, dot_old = torch.func.jvp(old.dcm_from_j2000, (tt,), (ones,))
+            dcm_new, dot_new = torch.func.jvp(frame.dcm_from_j2000, (tt,), (ones,))
+            r_old, v_old = torch.as_tensor(ys[:, 0:3], **f64), torch.as_tensor(ys[:, 3:6], **f64)
+            r_j = apply_dcm_t(dcm_old, r_old)
+            v_j = apply_dcm_t(dcm_old, v_old) + apply_dcm_t(dot_old, r_old)
+            ys[:, 0:3] = apply_dcm(dcm_new, r_j).cpu().numpy()
+            ys[:, 3:6] = (apply_dcm(dcm_new, v_j) + apply_dcm(dot_new, r_j)).cpu().numpy()
+        orbit = Orbit(ys[0, 0:3].copy(), ys[0, 3:6].copy(), self.epoch0 + float(self.ts[0]), frame)
+        return Trajectory(self.epoch0, self.ts.copy(), ys, replace(self.template, orbit=orbit))
+
+    def groundtrack(self, body_frame=None, step=60.0, *, device="cuda"):
+        """(epochs_rel_s, lat_deg, lon_deg, alt_km) under the trajectory
+        every `step`, the rotation on `device`. `body_frame` defaults to the
+        IAU frame of the trajectory's centre (the reference's default is
+        IAU_EARTH whatever the centre); a frame about another body raises,
+        since the positions are not moved to its centre."""
+        center = self.template.frame.center
+        if body_frame is None:
+            if center not in _IAU_FRAMES:
+                raise ConfigError(f"no IAU body frame for center {center}; pass body_frame")
+            body_frame = _IAU_FRAMES[center]
+        if body_frame.center != center:
+            raise ConfigError(f"ground track in {body_frame} of a trajectory about {self.template.frame}: "
+                              "move the trajectory to its centre first (to_frame)")
+        ts = np.arange(float(self.ts[0]), float(self.ts[-1]) + 1e-9, _secs(step))
+        rs = np.stack([self.interpolate(t)[:3] for t in ts])
+        f64 = dict(dtype=torch.float64, device=device)
+        dcm = body_frame.dcm_from_j2000(torch.as_tensor(self.epoch0.to_tdb_seconds() + ts, **f64))
+        r_bf = apply_dcm(dcm, torch.as_tensor(rs, **f64)).cpu().numpy()
+        rmag = np.linalg.norm(r_bf, axis=-1)
+        lat = np.degrees(np.arcsin(r_bf[:, 2] / rmag))
+        lon = np.degrees(np.arctan2(r_bf[:, 1], r_bf[:, 0]))
+        return ts, lat, lon, rmag - (body_frame.radius_km or 0.0)
+
+    def ric_diff(self, other: "Trajectory", step=60.0):
+        """(epochs_rel_s, dr_ric [K, 3], dv_ric [K, 3]) of this trajectory
+        minus `other` in `other`'s RIC frame, every `step` over their common
+        span (host, float64)."""
+        off = (self.epoch0 - other.epoch0).to_seconds()
+        t0 = max(float(self.ts[0]), float(other.ts[0]) - off)
+        t1 = min(float(self.ts[-1]), float(other.ts[-1]) - off)
+        ts = np.arange(t0, t1 + 1e-9, _secs(step))
+        mine = np.stack([self.interpolate(t)[:6] for t in ts])
+        theirs = np.stack([other.interpolate(t + off)[:6] for t in ts])
+        dcm = ric_dcm(torch.from_numpy(theirs[:, 0:3].copy()), torch.from_numpy(theirs[:, 3:6].copy())).numpy()
+        dr = np.einsum("kij,kj->ki", dcm, mine[:, 0:3] - theirs[:, 0:3])
+        dv = np.einsum("kij,kj->ki", dcm, mine[:, 3:6] - theirs[:, 3:6])
+        return ts, dr, dv
+
+    def ric_diff_to_parquet(self, other: "Trajectory", path, step=60.0) -> str:
+        """`ric_diff` written as a zstd parquet table: epoch_rel_s, the
+        position and velocity difference norms and each RIC component."""
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        ts, dr, dv = self.ric_diff(other, step)
+        cols = {"epoch_rel_s": ts, "delta_r_km": np.linalg.norm(dr, axis=-1),
+                "delta_v_km_s": np.linalg.norm(dv, axis=-1)}
+        for i, lbl in enumerate(("radial", "in_track", "cross_track")):
+            cols[f"dr_{lbl}_km"] = dr[:, i]
+            cols[f"dv_{lbl}_km_s"] = dv[:, i]
+        pq.write_table(pa.table(cols), str(path), compression="zstd")
+        return str(path)
 
     # ---------------- export (parquet/OEM in io.export) ---------------
     def to_parquet(self, path, cfg=None):

@@ -10,8 +10,12 @@ time (`light_time_backdate`, per row). The station velocity is d/dt of
 as the reference takes it with `jax.jvp`. The OD filter gathers the
 geometry by tracker index (per-row latitude, longitude and height) and
 differentiates `observe` alone. A two-way observable (`two_way_fn`) is the
-average of the one-way values at t - T_int and t. YAML I/O, terrain masks,
-timestamp noise and cross-body targets are not ported yet.
+average of the one-way values at t - T_int and t. The station's body is its
+frame's: its radius and flattening shape the geodetic conversion, its
+orientation model the rotation (IAU_MOON stations sit on a sphere of
+1,737.4 km). YAML I/O, terrain masks, timestamp noise and cross-body
+targets are not ported yet: `require_same_center` refuses a spacecraft
+state about another body than the stations'.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from ..constants import SPEED_OF_LIGHT_KM_S
 from ..cosmic.frames import Frame, Frames
 from ..cosmic.rotations import apply_dcm, apply_dcm_t
+from ..errors import ConfigError
 from ..xmath import norm
 from .msr import MeasurementType
 from .noise import StochasticNoise
@@ -77,6 +82,18 @@ def station_geometry(t_tdb, lat_deg, lon_deg, height_km, frame: Frame):
     r_st, v_st = torch.func.jvp(pos, (t_tdb,), (torch.ones_like(t_tdb),))
     sez = torch.matmul(sez_dcm(lat_deg, lon_deg), frame.dcm_from_j2000(t_tdb))
     return r_st, v_st, sez
+
+
+def require_same_center(devices, state_frame: Frame) -> None:
+    """Raise ConfigError unless every station's body is the centre of
+    `state_frame`: the geometry subtracts station positions about their
+    body from spacecraft states about theirs, and the cross-body offset
+    (the reference's `GroundStation.with_target_frame`) is not ported."""
+    for d in devices:
+        if d.frame.center != state_frame.center:
+            raise ConfigError(
+                f"station {d.name} is on {d.frame} but the spacecraft state is in {state_frame}: "
+                "cross-body tracking (with_target_frame) is not ported")
 
 
 def light_time_backdate(rv6, r_st):

@@ -65,7 +65,7 @@ from ..dynamics.spacecraft_dyn import SpacecraftDynamics
 from ..errors import ConfigError, PropagationError
 from ..propagators import integrator
 from ..time import Duration, Epoch
-from .ground_station import GroundStation, observe, station_geometry
+from .ground_station import GroundStation, observe, require_same_center, station_geometry
 from .msr import TrackingDataArc
 
 STATE_DIM = 9
@@ -631,6 +631,7 @@ class ScanKalmanOD:
         start and the stages rerun. Intermediate passes run with the gate
         off; only the last applies it. `variant="ekf"` runs the segmented
         filter instead (`_process_arc_ekf`)."""
+        require_same_center(self.devices, initial_estimate.nominal.frame)
         gate = self.resid_rejection_sigmas is not None
         if arc.force_reject and not gate:
             raise ConfigError("resid-vs-ref arcs (force_reject) need a filter built "

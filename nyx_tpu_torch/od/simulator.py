@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .ground_station import require_same_center
 from .msr import Measurement, TrackingDataArc
 from .noise import NoiseState
 
@@ -61,6 +62,7 @@ class TrackingArcSim:
         self.device = device
         self._schedule: Optional[List[Strand]] = None
         self._grid_cache = {}
+        require_same_center(self.devices, trajectory.template.frame)
         for d in self.devices:
             if d.name not in self.configs:
                 self.configs[d.name] = TrkConfig(scheduler=Scheduler())

@@ -8,12 +8,16 @@ result, mode included, with `for_duration_with_traj` reading the capture
 buffer into a host `Trajectory`; `until_epoch` and the event stops
 (`until_event`, `until_nth_event`: propagate with capture, then root-find
 on the trajectory) build on it. A lane that turns to NaN raises
-`PropagationNaNError`, an `ArithmeticError` as the reference's. A
-state-carried STM, an integration frame other than the state's and the
-context override are not ported yet.
+`PropagationNaNError`, an `ArithmeticError` as the reference's. With
+`IntegratorOptions.integration_frame` set, the state moves into that
+frame once, up front (relabelled where the centres match, else
+translated through the almanac), and results stay in it. A state-carried
+STM and the context override are not ported yet.
 """
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -36,6 +40,15 @@ class PropInstance:
         self.state = state
         self.almanac = almanac
         self.device = torch.device(device)
+        iframe = prop.opts.integration_frame
+        if iframe is not None and iframe != state.frame:
+            if iframe.center == state.frame.center:
+                orbit = replace(state.orbit, frame=iframe)
+            elif almanac is None:
+                raise PropagationError("integration_frame with a different center needs an almanac")
+            else:
+                orbit = almanac.translate_to(state.orbit, iframe)
+            self.state = replace(state, orbit=orbit)
         #: the integrator's PropResult of the latest propagation (steps,
         #: iterations), or None before the first
         self.last_result = None

@@ -1,8 +1,7 @@
 """Integrator options (GMAT defaults), torch port of nyx_tpu/propagators/options.py.
 
 The reference's TPU-only knobs (`stage_mode`, `steps_per_iter`,
-`min_lanes`, `loop_mode`, `combo_precision`) have no counterpart here;
-`integration_frame` is not ported yet.
+`min_lanes`, `loop_mode`, `combo_precision`) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -29,6 +28,9 @@ class IntegratorOptions:
     error_ctrl: Callable = ErrorControl.RSSCartesianStep
     # Cap on attempted steps per propagate call.
     max_iterations: int = 200_000
+    # Frame to move the state into before propagating (the reference's
+    # options.rs:42-61); None propagates in the state's own frame.
+    integration_frame: object = None
 
     @classmethod
     def with_adaptive_step(

@@ -19,15 +19,20 @@ def reduce_deg(x):
     return x - k * 360.0
 
 
-def linear_angle_deg(base_deg: float, rate_deg_per_day: float, d_days):
+def linear_angle_deg(base_deg, rate_deg_per_day, d_days):
     """(base + rate * d) mod 360, accurate for large day counts.
 
     Splits both rate and day count into integer + fraction so every product
-    stays exactly representable before the modulo.
+    stays exactly representable before the modulo. `base_deg` and
+    `rate_deg_per_day` are numbers or tensors that broadcast against
+    `d_days` (a series of angles at once).
     """
     d_i = torch.floor(d_days)
     d_f = d_days - d_i
-    r_i = float(math.floor(rate_deg_per_day))
+    if isinstance(rate_deg_per_day, torch.Tensor):
+        r_i = torch.floor(rate_deg_per_day)
+    else:
+        r_i = float(math.floor(rate_deg_per_day))
     r_f = rate_deg_per_day - r_i
     big = r_i * d_i
     big_mod = big - torch.round(big * (1.0 / 360.0)) * 360.0

@@ -332,39 +332,56 @@ def test_guided_eom_and_finally_match_reference(precision):
     np.testing.assert_array_equal(fin, fin_ref)
 
 
-def _geo_y0(n, seed):
-    """[n, 9] states: the station-keeping template with sma dispersed at
-    3 km 1-sigma (a circular orbit's r and v scaled)."""
-    sc_ref, _ = _spacecraft(GEO_KEP)
+def _geo_y0(n, seed, kep=GEO_KEP):
+    """[n, 9] states: the station-keeping template (from `kep`) with sma
+    dispersed at 3 km 1-sigma (a circular orbit's r and v scaled)."""
+    sc_ref, _ = _spacecraft(kep)
     y = np.tile(sc_ref.to_vector(), (n, 1))
-    a = GEO_KEP[0] + np.random.default_rng(seed).normal(0.0, 3.0, n)
-    y[:, 0:3] *= (a / GEO_KEP[0])[:, None]
-    y[:, 3:6] *= np.sqrt(GEO_KEP[0] / a)[:, None]
+    a = kep[0] + np.random.default_rng(seed).normal(0.0, 3.0, n)
+    y[:, 0:3] *= (a / kep[0])[:, None]
+    y[:, 3:6] *= np.sqrt(kep[0] / a)[:, None]
     return y
+
+
+# An inclined GEO start whose node is well defined (inc 1 deg, the inc
+# steering's sign fixed over the first hour: aop + ta runs from 120 to 135
+# deg) for Config 4's dynamics, where the two packages take the same steps.
+GEO_KEP_INCLINED = (42_164.0, 1e-5, 1.0, 163.0, 120.0, 0.0)
+# The equatorial runs' envelope, as a multiple of the witness gap (the port
+# against itself at tolerance 1e-10 and 0.99e-10 over the same 4 h).
+WITNESS_MULTIPLE = 10.0
 
 
 @pytest.fixture(scope="module")
 def sk_runs():
     """Config 4's station-keeping Monte Carlo, 4 lanes from the same initial
-    states over its first 4 h and 6 h, through both packages with an f64
-    8x8 field (which keeps the split field's twin-vs-XLA f32 rounding out).
-    Returns {hours: (reference Results, port Results)}, the initial states
-    and the port's dynamics."""
+    states (sma dispersed) through both packages with an f64 8x8 field
+    (which keeps the split field's twin-vs-XLA f32 rounding out), one
+    propagator each (the reference compiles once): from the exactly
+    equatorial template over its first 4 h and 6 h; the port's 4 h again at
+    tolerance 0.99e-10 (the witness); and from the inclined start over its
+    first hour. Returns ({hours: (reference Results, port Results)}, the
+    equatorial initial states, the port's dynamics, the witness Results,
+    (reference, port) Results of the inclined hour)."""
     sc_ref, sc = _spacecraft(GEO_KEP)
     dyn_ref, dyn = _sk_dynamics("f64", sc_ref, sc)
-    y0 = _geo_y0(4, seed=41)
     mc_ref = RMonteCarlo(RMvnSpacecraft(sc_ref, [RStateDispersion.zero_mean("sma", 3.0)]), seed=3)
     mc = MonteCarlo(MvnSpacecraft(sc, [StateDispersion.zero_mean("sma", 3.0)]), seed=3)
     prop_ref = RPropagator.rk89(dyn_ref, RIntegratorOptions(min_step_s=30.0, tolerance=1e-10))
-    prop = Propagator.rk89(dyn, IntegratorOptions(min_step_s=30.0, tolerance=1e-10))
-    runs = {}
-    for hours in (4, 6):
+
+    def run(y0, hours, tolerance=1e-10, reference=True):
         end = hours * 3600.0
-        runs[hours] = (
-            mc_ref.run_until_epoch(prop_ref, RAlmanac(), sc_ref.epoch + end, 4, _y0=_j(y0)),
-            mc.run_until_epoch(prop, Almanac(), sc.epoch + end, 4, device="cpu", _y0=y0),
-        )
-    return runs, y0, dyn
+        prop = Propagator.rk89(dyn, IntegratorOptions(min_step_s=30.0, tolerance=tolerance))
+        res = mc.run_until_epoch(prop, Almanac(), sc.epoch + end, 4, device="cpu", _y0=y0)
+        if not reference:
+            return res
+        return mc_ref.run_until_epoch(prop_ref, RAlmanac(), sc_ref.epoch + end, 4, _y0=_j(y0)), res
+
+    y0 = _geo_y0(4, seed=41)
+    runs = {hours: run(y0, hours) for hours in (4, 6)}
+    witness = run(y0, 4, tolerance=0.99e-10, reference=False)
+    inclined = run(_geo_y0(4, 41, GEO_KEP_INCLINED), 1)
+    return runs, y0, dyn, witness, inclined
 
 
 def _gaps(res_ref, res):
@@ -378,15 +395,23 @@ def test_station_keeping_run_matches_reference(sk_runs):
     """The 4-lane station-keeping runs, every lane done in both packages,
     starting in the template's mode (Thrust).
 
-    Over the first 4 h, before any lane meets its objectives, every lane
-    thrusts throughout in both packages: final modes identical (Thrust),
-    positions within 1e-6 km, velocities 1e-9 km/s, propellant 1e-12 kg.
-    The step sequences part from the second step on: the exactly
-    equatorial start puts the orbit's node, and with it the sign of
-    Ruggiero's inc steering, on differences of near-zero angular-momentum
+    On the inclined start over its first hour every lane thrusts
+    throughout and both packages take the same steps (accepted and
+    rejected counts equal, printed): positions within 1e-6 km, velocities
+    1e-9 km/s, propellant 1e-12 kg.
+
+    On the exactly equatorial template the step sequences part from the
+    second step on: the orbit's node, and with it the sign of Ruggiero's
+    inc steering, rests on differences of near-zero angular-momentum
     components, where the two packages' roundings differ (XLA contracts
-    multiply-adds, torch does not); the runs agree to integration
-    accuracy all the same.
+    multiply-adds, torch does not), and so does each host's. Two runs on
+    different step sequences differ by the integration error at 1e-10,
+    which the witness measures: the port against itself at tolerance 1e-10
+    and 0.99e-10 over the same 4 h. Over 4 h, before any lane meets its
+    objectives, every lane thrusts throughout in both packages: final
+    modes identical (Thrust), positions and velocities within
+    WITNESS_MULTIPLE times the witness's gaps, propellant 1e-12 kg (the
+    mass flow is constant while thrusting).
 
     By 6 h the lanes have met sma, ecc and inc (at ~4.3-4.5 h) and coast,
     thrusting for one 30 s floor step whenever ecc or inc drifts back out
@@ -397,14 +422,26 @@ def test_station_keeping_run_matches_reference(sk_runs):
     propellant 1e-3 kg (a switch one floor step apart moves 3.3e-4 kg and
     ~0.02 km). Propellant was burned, within F t / (Isp g0). The measured
     gaps are printed."""
-    runs, y0, dyn = sk_runs
+    runs, y0, dyn, witness, (inc_ref, inc) = sk_runs
+    d_r, d_v, d_m = _gaps(inc_ref, inc)
+    print(f"\ninclined start, 1 h, port vs reference: positions {d_r:.3e} km, velocities {d_v:.3e} km/s, "
+          f"prop {d_m:.3e} kg; accepted steps {inc.n_accepted.tolist()} vs "
+          f"{np.asarray(inc_ref.n_accepted).tolist()}, rejected {inc.n_rejected.tolist()} vs "
+          f"{np.asarray(inc_ref.n_rejected).tolist()}")
+    assert inc.n_ok == inc_ref.n_ok == 4
+    np.testing.assert_array_equal(inc.n_accepted, np.asarray(inc_ref.n_accepted))
+    np.testing.assert_array_equal(inc.n_rejected, np.asarray(inc_ref.n_rejected))
+    assert d_r < 1e-6 and d_v < 1e-9 and d_m < 1e-12
+    assert (inc.y_final[:, 9] == GuidanceMode.Thrust).all()
+    np.testing.assert_array_equal(inc.y_final[:, 9], np.asarray(inc_ref.y_final)[:, 9])
+
     for hours, (res_ref, res) in runs.items():
         assert res.n_ok == res_ref.n_ok == 4
         assert res.y_final.shape == np.asarray(res_ref.y_final).shape == (4, 10)
         np.testing.assert_array_equal(res.y_initial[:, :9], y0)
         assert (res.y_initial[:, 9] == GuidanceMode.Thrust).all()
         d_r, d_v, d_m = _gaps(res_ref, res)
-        print(f"\n{hours} h station keeping, port vs reference: positions {d_r:.3e} km, velocities "
+        print(f"{hours} h station keeping, port vs reference: positions {d_r:.3e} km, velocities "
               f"{d_v:.3e} km/s, prop {d_m:.3e} kg; accepted steps {res.n_accepted.tolist()} vs "
               f"{np.asarray(res_ref.n_accepted).tolist()}; final modes {res.y_final[:, 9].tolist()} vs "
               f"{np.asarray(res_ref.y_final)[:, 9].tolist()}")
@@ -413,8 +450,14 @@ def test_station_keeping_run_matches_reference(sk_runs):
         assert (used <= THRUSTER[0] / (THRUSTER[1] * STD_GRAVITY_M_S2) * hours * 3600.0 * (1 + 1e-12)).all()
 
     res_ref, res = runs[4]
+    w_r, w_v, _ = _gaps(witness, res)
     d_r, d_v, d_m = _gaps(res_ref, res)
-    assert d_r < 1e-6 and d_v < 1e-9 and d_m < 1e-12
+    print(f"4 h witness, the port at 1e-10 vs 0.99e-10: positions {w_r:.3e} km, velocities {w_v:.3e} km/s; "
+          f"accepted steps {witness.n_accepted.tolist()}; port vs reference / witness: positions "
+          f"{d_r / w_r:.2f}, velocities {d_v / w_v:.2f}")
+    assert witness.n_ok == 4 and not np.array_equal(witness.n_accepted + witness.n_rejected,
+                                                    res.n_accepted + res.n_rejected)
+    assert d_r < WITNESS_MULTIPLE * w_r and d_v < WITNESS_MULTIPLE * w_v and d_m < 1e-12
     assert (res.y_final[:, 9] == GuidanceMode.Thrust).all()
     np.testing.assert_array_equal(res.y_final[:, 9], np.asarray(res_ref.y_final)[:, 9])
 
