@@ -24,12 +24,12 @@ raises and exits non-zero:
 4. run the main path, after a 120 s warm-up arc, and count kernel launches;
 5. rerun 64 of its lanes over the day's first 2 h through the kernel and
    with the gravity twin forced, and compare finals;
-6. the same ensemble with 70x70 JGM3 split gravity over half an hour,
+6. the same ensemble with 70x70 JGM3 split gravity over a quarter hour,
    through the kernel, and its 64-lane twin rerun;
 6b. the bench's OD leg (bench.py:279-404) through the port: a one-day
    truth by `for_duration_with_traj`, DSS-65/34/13 range and Doppler every
    60 s by `TrackingArcSim`, and `ScanKalmanOD` (CKF, stm_jvp_degree 8,
-   f32 algebra) over the whole arc after a 2-hour warm-up arc, timed, with
+   f32 algebra) over the whole arc after a 1-hour warm-up arc, timed, with
    its kernel launches counted; the bench's 100 m guard against the
    truth; the warm-up arc again with the gravity twin forced (every row
    within 1e-3 km of the warm-up's) and with f64 algebra
@@ -38,7 +38,7 @@ raises and exits non-zero:
    same stations two-way (60 s integration), simulated by
    `TrackingArcSim`, and the segmented EKF (`variant="ekf"`, SNC, 3-sigma
    gate, stm_jvp_degree 8, f32 algebra) from a dispersed start, after a
-   2-hour warm-up arc, timed over the whole arc with its kernel launches
+   1-hour warm-up arc, timed over the arc's first 12 h with its kernel launches
    counted; the bench's 100 m guard; the warm-up arc again through the
    gravity twin (every row within 1e-3 km of the warm-up's) and with f64
    algebra (TestF32FilterAlgebra's bounds, the same rejections);
@@ -46,9 +46,9 @@ raises and exits non-zero:
    (examples/03_geo_analysis.py:248-350): 25 lanes, 8x8 JGM3 split,
    Sun and Moon point masses, SRP with an Earth shadow, a 0.472 N /
    4,435 s thruster under the eclipse-gated Ruggiero law, RK89 at 1e-10
-   with a 30 s floor, over one day of its 30, after a 600 s warm-up, with
+   with a 30 s floor, over 8 h of its 30 days, after a 600 s warm-up, with
    its kernel launches counted and one EOM call's CUDA launches profiled;
-   then 4 of its lanes over the first 4 h through the kernel and the twin
+   then 4 of its lanes over the first 2 h through the kernel and the twin
    (final positions within 1e-6 km, the same final modes);
 6e. Config 1 of BASELINE.md, one spacecraft (examples/01_orbit_prop.py:
    50-93): (a) the example's scene (LEO, 21x21 JGM3 at f64, Sun and Moon,
@@ -71,7 +71,7 @@ raises and exits non-zero:
    04_lro_od.py:57-238): the 80x80 Kaula-rule lunar field at split
    precision (the kernel streams its table), an LRO-like 50 x 110 km polar
    orbit in MOON_J2000, RK89 at 1e-10 with a 60 s max step, over a cut
-   depth of 4 h of its 24 h (two revolutions): the truth by
+   depth of 2 h of its 24 h (one revolution): the truth by
    `for_duration_with_traj`, timed, with one EOM call profiled by module;
    six polar IAU_MOON stations, two-way, simulated by `TrackingArcSim`; the
    segmented EKF (SNC, 3-sigma gate, stm_jvp_degree 8) over the first
@@ -81,6 +81,24 @@ raises and exits non-zero:
    first 600 s through the kernel and the twin (within 1e-9 km); and
    `Trajectory.to_frame(IAU_MOON)` and `groundtrack` of the truth on the
    card against the CPU (within 1e-9);
+6g. Config 3 of BASELINE.md, covariance mapping and a Monte Carlo
+   (examples/02_jwst_covar_monte_carlo.py:39-163), at full width: the
+   180,000 km, e = 0.7 orbit with Sun and Moon point masses and SRP with
+   the Earth's and the Moon's shadows, RK89 at 1e-12 (no field, so no
+   kernel launch); (a) `ScanKalmanOD.predict_for` over 6.5 days at 60 s
+   (9,360 estimates), timed, the covariance symmetric and PSD; (b) the
+   5,000-lane `run_until_epoch` with 256 capture nodes over the 6.5 days
+   after a 300 s warm-up, timed (5,000/5,000 ok, sample 0 the initial
+   state, the MC over mapped position-sigma ratio within [0.95, 1.05]);
+   (c) `to_parquet` of the finals and of every node, read back; (d) the
+   example's Encke mode (ABM, dt 600 s, 256 nodes) on the same draws, its
+   finals within 2e-3 km of (b)'s and its sigmas within 1e-3; (e) Config
+   2's Encke mode at the bench's defaults (bench.py:164-171: fixed step,
+   ABM, automatic dt) at B = 10,000 over phase 5's 2 h, timed after a
+   first call that builds its reference: the float32 perturbation's field
+   through the kernel (launches counted, no twin primal call on CUDA), the
+   first 64 lanes within 2e-3 km of phase 5's 64-lane full-state kernel
+   run, and within 1e-9 km of the same lanes through the twin;
 7. print the command time and the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
@@ -101,8 +119,10 @@ import importlib.util
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+from types import SimpleNamespace
 
 _T_START = time.perf_counter()
 from pathlib import Path
@@ -121,17 +141,26 @@ KERNEL_REL_TOL = 2e-5
 TWIN_FINAL_TOL_KM = 1e-3
 # Config 2's twin rerun holds the kernel to the twin over this prefix of the
 # day (6 h until Config 5's phase needed the time), and phase 6's 70x70
-# ensemble runs over its first half hour (one hour until then).
+# ensemble runs over its first quarter hour (one hour until Config 5's phase
+# needed the time, half an hour until Config 3's did).
 TWIN_PREFIX_S = 2 * 3600.0
-SECONDS_70X70 = 1800.0
+SECONDS_70X70 = 900.0
+# The OD legs' warm-up arc, whose rows the twin and f64 reruns repeat (2 h
+# until Config 3's phase needed the time), and the flagship leg's timed arc,
+# the first 12 h of its day (the whole day until then; it took 57-142 s on
+# NVIDIA H100 80GB HBM3 cards at 700 W).
+OD_WARM_S = 3600.0
+FLAGSHIP_SECONDS = 43_200.0
 # Config 4's station keeping (examples/03_geo_analysis.py:248-350): its 25
-# lanes over one day of the 30, a NEXT-STEP-class thruster, and 4 lanes in
-# the kernel-vs-twin rerun.
+# lanes over 8 h of the 30 days (one day until Config 3's phase needed the
+# time; the day took 95-169 s on NVIDIA H100 80GB HBM3 cards at 700 W), a
+# NEXT-STEP-class thruster, and 4 lanes in the kernel-vs-twin rerun.
 B_SK = 25
 B_SK_TWIN = 4
-SK_SECONDS = 86_400.0
-# its kernel-vs-twin rerun's prefix (6 h until Config 5's phase needed the time)
-SK_TWIN_PREFIX_S = 4 * 3600.0
+SK_SECONDS = 8 * 3600.0
+# its kernel-vs-twin rerun's prefix (6 h until Config 5's phase needed the
+# time, 4 h until Config 3's did)
+SK_TWIN_PREFIX_S = 2 * 3600.0
 SK_THRUST_N = 0.472
 SK_ISP_S = 4435.0
 # Config 4's kernel-vs-twin bound over the 6 h prefix, km. At GEO the
@@ -175,13 +204,27 @@ B_EX04_STM = 9 * 32
 # The bench's OD guard: final position error against the truth (bench.py:376).
 OD_GUARD_KM = 0.1
 # Config 5 (examples/04_lro_od.py): the lunar GM of the field and the orbit's
-# frame, the example's 24 h arc cut to 4 h (two revolutions of the 1.93 h
-# orbit; 6 h took phase 6f 225 s on an NVIDIA H100 80GB HBM3 at 700 W), the
-# range postfit RMS guard, km, and the twin witness's prefix.
+# frame, the example's 24 h arc cut to 2 h (one revolution of the 1.93 h
+# orbit; 6 h took phase 6f 225 s, 4 h 156 s and 3 h 181 s on NVIDIA H100 80GB
+# HBM3 cards at 700 W; 4 h until Config 3's phase needed the time), the range
+# postfit RMS guard, km, and the twin witness's prefix.
 EX04_MU = 4902.800066
-EX04_HOURS = 4.0
+EX04_HOURS = 2.0
 EX04_POSTFIT_RMS_KM = 5e-3
 EX04_TWIN_PREFIX_S = 600.0
+# Config 3 (examples/02_jwst_covar_monte_carlo.py): its 5,000 lanes over its
+# 6.5 days with 256 capture nodes (every step of the ~216); the window of the
+# Monte Carlo's position sigmas over the mapped ones (the example's own run
+# gave 0.99; the sampling error at N = 5,000 is ~1 %); and the Encke bounds:
+# the deviation lanes against the full state, km (tests/test_torch_config3.py's
+# own, 2e-3 km, where it measures 2.9e-6 km over ex02's first day at B = 8),
+# and the kernel's Encke against the twin's.
+EX02_B = 5_000
+EX02_DAYS = 6.5
+EX02_N_CAPTURE = 256
+EX02_RATIO = (0.95, 1.05)
+ENCKE_FULL_TOL_KM = 2e-3
+ENCKE_TWIN_TOL_KM = 1e-9
 # f32 against f64 filter algebra (tests/test_od.py:1782-1792): positions
 # (km) and sigmas (relative).
 OD_F32_POS_KM = 2e-3
@@ -383,6 +426,44 @@ def ex04_scene(stor, precision: str = "split", *, device="cuda"):
                            almanac=almanac, est0=est0, od=od)
 
 
+def ex02_scene(*, device="cuda"):
+    """The scene of examples/02_jwst_covar_monte_carlo.py:41-96 through the
+    port's own names: the 180,000 km, e = 0.7 orbit in EME2000 (i 28 deg),
+    a 6,200 kg spacecraft with 100 m^2 of SRP area at Cr 1.3, Sun and Moon
+    point masses, SRP with the Earth's and the Moon's shadows, RK89 at the
+    default options (1e-12); the RIC uncertainty (0.5, 0.3, 1.5 km; 1e-4,
+    3e-4, 2e-4 km/s) as the initial estimate, the covariance-mapping filter
+    (DSS-65 at a 10 deg mask, range and Doppler) and the Monte Carlo's
+    dispersion (`MvnSpacecraft.from_covariance` of the estimate's
+    covariance). Returns a namespace of them."""
+    from types import SimpleNamespace
+
+    from nyx_tpu_torch import Epoch, Frames, Orbit, Spacecraft
+    from nyx_tpu_torch.constants import NAIF
+    from nyx_tpu_torch.dynamics import OrbitalDynamics, PointMasses, SolarPressure, SpacecraftDynamics
+    from nyx_tpu_torch.ephem import Almanac
+    from nyx_tpu_torch.mc import MvnSpacecraft
+    from nyx_tpu_torch.od import GroundStation, MeasurementType, ScanKalmanOD, SpacecraftUncertainty
+    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
+
+    almanac = Almanac()
+    epoch = Epoch.from_gregorian_utc(2024, 6, 1, 0, 0, 0)
+    orbit = Orbit.keplerian(180_000.0, 0.7, 28.0, 80.0, 90.0, 140.0, epoch, Frames.EME2000)
+    sc = Spacecraft.new(orbit, 6200.0, 0.0, srp_area_m2=100.0, drag_area_m2=0.0, cr=1.3, cd=0.0)
+    dyn = SpacecraftDynamics(
+        OrbitalDynamics.from_models([PointMasses((NAIF.SUN, NAIF.MOON))], Frames.EME2000),
+        (SolarPressure.cislunar(),),
+    )
+    prop = Propagator.rk89(dyn, IntegratorOptions())
+    est0 = SpacecraftUncertainty(nominal=sc, frame="ric", x_km=0.5, y_km=0.3, z_km=1.5,
+                                 vx_km_s=1e-4, vy_km_s=3e-4, vz_km_s=2e-4).to_estimate()
+    scan = ScanKalmanOD(prop, [GroundStation.dss65_madrid(10.0)],
+                        types=(MeasurementType.RANGE_KM, MeasurementType.DOPPLER_KM_S),
+                        almanac=almanac, device=device)
+    return SimpleNamespace(epoch=epoch, sc=sc, prop=prop, almanac=almanac, est0=est0, scan=scan,
+                           mvn=MvnSpacecraft.from_covariance(sc, est0.covar))
+
+
 def _parent_gravity(root: Path):
     """The `gravity_pines` module of the port in the checkout at `root`,
     imported under another package name beside this one: its own wrapper,
@@ -486,7 +567,8 @@ def run_and_rerun(mc_seed, mvn, propagator, alm, start, seconds, gp, label):
     from 0, then B_TWIN of its lanes through the gravity twin over the arc's
     first min(seconds, TWIN_PREFIX_S), held against the ensemble's finals
     where that is the whole arc, else against a fresh B_TWIN-lane kernel
-    run of the prefix. Returns the launches."""
+    run of the prefix. Returns the launches and the kernel's Results over
+    the prefix (its first B_TWIN lanes are the twin's)."""
     from nyx_tpu_torch.mc import MonteCarlo
 
     end = start + seconds
@@ -530,7 +612,7 @@ def run_and_rerun(mc_seed, mvn, propagator, alm, start, seconds, gp, label):
          f"{float(np.mean(twin.n_accepted)):.2f} vs {float(np.mean(kernel.n_accepted[:B_TWIN])):.2f}")
     if not d_km < TWIN_FINAL_TOL_KM:
         raise RuntimeError(f"{label}: kernel and twin runs differ by {d_km} km >= {TWIN_FINAL_TOL_KM}")
-    return launches
+    return launches, kernel
 
 
 def _head(arc, seconds: float):
@@ -616,7 +698,7 @@ def phase_od(gp, stor21):
         return ScanKalmanOD(_od_propagator(stor21, backend), stations, types=types, variant="ckf",
                             stm_jvp_degree=8, filter_algebra=algebra)
 
-    warm_arc = _head(arc, 7200.0)
+    warm_arc = _head(arc, OD_WARM_S)
     scan = od("auto", "f32")
     # the warm-up also counts the host synchronizations that torch flags
     # (a per-row sync in the filter loop would show as one a row)
@@ -628,7 +710,7 @@ def phase_od(gp, stor21):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     syncs = sum("synchroniz" in str(w.message) for w in caught)
-    _log(f"OD warm-up, first 2 h ({len(warm_arc)} rows): {syncs} synchronizing calls flagged "
+    _log(f"OD warm-up, first {OD_WARM_S:g} s ({len(warm_arc)} rows): {syncs} synchronizing calls flagged "
          f"by torch.cuda.set_sync_debug_mode")
 
     gp.pines_accel_cuda.launches = 0
@@ -663,12 +745,12 @@ def phase_od(gp, stor21):
     # every stage-1 step
     twin = od("torch", "f32").process_arc(est0, warm_arc)
     d_twin = float(np.linalg.norm(twin.y_est[:, :3] - warm.y_est[:, :3], axis=1).max())
-    _log(f"OD twin rerun of the first 2 h ({len(warm_arc)} rows): max row position difference "
+    _log(f"OD twin rerun of the first {OD_WARM_S:g} s ({len(warm_arc)} rows): max row position difference "
          f"{d_twin:.3e} km")
     if not d_twin < TWIN_FINAL_TOL_KM:
         raise RuntimeError(f"OD kernel and twin runs differ by {d_twin} km")
 
-    _f32_vs_f64("OD, first 2 h,", warm, od("auto", "f64").process_arc(est0, warm_arc))
+    _f32_vs_f64(f"OD, first {OD_WARM_S:g} s,", warm, od("auto", "f64").process_arc(est0, warm_arc))
     return dict(launches=launches, rows_per_s=rate, rows=len(arc), wall=wall, truth=truth,
                 traj=traj)
 
@@ -702,8 +784,9 @@ def phase_od_flagship(gp, stor21, truth, traj):
                             resid_rejection_sigmas=3.0, stm_jvp_degree=8, filter_algebra=algebra)
 
     scan = od("auto", "f32")
-    warm_arc = _head(arc, 7200.0)
+    warm_arc = _head(arc, OD_WARM_S)
     warm = scan.process_arc(est, warm_arc)  # warm-up; the reruns below are held to it
+    arc = _head(arc, FLAGSHIP_SECONDS)
 
     gp.pines_accel_cuda.launches = 0
     gp.pines_accel_torch.cuda_calls = 0
@@ -741,11 +824,12 @@ def phase_od_flagship(gp, stor21, truth, traj):
     # the twin and f64 reruns take the warm-up's arc, as in phase 6b
     twin = od("torch", "f32").process_arc(est, warm_arc)
     d_twin = float(np.linalg.norm(twin.y_est[:, :3] - warm.y_est[:, :3], axis=1).max())
-    _log(f"OD flagship twin rerun of the first 2 h ({len(warm_arc)} rows): max row position "
+    _log(f"OD flagship twin rerun of the first {OD_WARM_S:g} s ({len(warm_arc)} rows): max row position "
          f"difference {d_twin:.3e} km")
     if not d_twin < TWIN_FINAL_TOL_KM:
         raise RuntimeError(f"OD flagship kernel and twin runs differ by {d_twin} km")
-    _f32_vs_f64("OD flagship, first 2 h,", warm, od("auto", "f64").process_arc(est, warm_arc))
+    _f32_vs_f64(f"OD flagship, first {OD_WARM_S:g} s,", warm,
+                od("auto", "f64").process_arc(est, warm_arc))
     _log(f"OD flagship phase: {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, rows_per_s=rate, rows=len(arc), wall=wall)
 
@@ -1146,6 +1230,172 @@ def phase_config5(gp, device="cuda"):
                 rows=len(arc), wall=wall, err_km=err_km)
 
 
+def phase_config3(gp, leo, kernel64, device="cuda"):
+    """Config 3 on `device` (the card; "cpu" rehearses it): ex02's scene at
+    full width. (a) `predict_for` over its 6.5 days at 60 s (9,360
+    estimates), timed, the final covariance symmetric and PSD; (b) the
+    5,000-lane full-state Monte Carlo with 256 capture nodes over the 6.5
+    days after a 300 s warm-up, timed (5,000/5,000 ok, no kernel launch:
+    ex02's dynamics hold no field; sample 0 the initial state; the MC over
+    mapped position-sigma ratio in EX02_RATIO); (c) `to_parquet` of the
+    finals and of every node, read back; (d) ex02's Encke mode (ABM, dt
+    600 s, 256 nodes) on the same draws, against (b)'s finals; (e) Config
+    2's Encke mode at the bench's defaults (fixed step, ABM, automatic dt)
+    at B_MAIN over the arc of phase 5's 64-lane kernel run, after a first
+    call that builds its reference: the kernel's launches counted from 0
+    (> 0, no twin primal call on CUDA), its first 64 lanes against that
+    run, and those lanes again through the twin. `leo` holds phase 4's
+    `propagator(backend)`, `mvn` and `almanac`; `kernel64` phase 5's
+    Results. Returns the summary's numbers."""
+    import pyarrow.parquet as pq
+
+    from nyx_tpu_torch.mc import MonteCarlo
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    scene = ex02_scene(device=device)
+    seconds = EX02_DAYS * 86_400.0
+    end = scene.epoch + seconds
+
+    # (a) covariance mapping
+    sync()
+    t0 = time.perf_counter()
+    sol = scene.scan.predict_for(scene.est0, seconds, step=60.0)
+    sync()
+    map_wall = time.perf_counter() - t0
+    walls = scene.scan.stage_walls_s
+    p_f = sol.final_covar()
+    lam = np.linalg.eigvalsh(p_f)
+    sig_map = np.sqrt(np.diag(p_f)[:3])
+    _log(f"Config 3 ({_card_line()}), ex02 at full width:")
+    _log(f"  (a) predict_for, {len(sol.y_est)} estimates over {EX02_DAYS} days: {map_wall:.3f} s, "
+         f"{len(sol.y_est) / map_wall:.1f} estimates/s; s1 {walls['s1']:.3f} s "
+         f"({walls['s1_iterations']} iterations), s2 {walls['s2']:.3f} s, s3 {walls['s3']:.3f} s, "
+         f"s4 {walls['s4']:.3f} s; mapped position sigmas {sig_map.tolist()} km; final covariance "
+         f"asymmetry {np.abs(p_f - p_f.T).max():.1e}, eigenvalues {lam.min():.3e} to {lam.max():.3e}")
+    if len(sol.y_est) != round(seconds / 60.0):
+        raise RuntimeError(f"Config 3 (a): {len(sol.y_est)} estimates")
+    if not (np.array_equal(p_f, p_f.T) and lam.min() >= -1e-12 * lam.max() and np.isfinite(p_f).all()):
+        raise RuntimeError("Config 3 (a): the mapped covariance is not symmetric PSD")
+
+    # (b) the full-state Monte Carlo with capture
+    mc = MonteCarlo(scene.mvn, seed=2024)
+    warm = mc.run_until_epoch(scene.prop, scene.almanac, scene.epoch + 300.0, EX02_B,
+                              n_capture=EX02_N_CAPTURE, device=device)
+    if warm.n_ok != EX02_B:
+        raise RuntimeError(f"Config 3 warm-up: {warm.n_ok}/{EX02_B} lanes ok")
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    sync()
+    t0 = time.perf_counter()
+    res = mc.run_until_epoch(scene.prop, scene.almanac, end, EX02_B, n_capture=EX02_N_CAPTURE,
+                             device=device)
+    sync()
+    mc_wall = time.perf_counter() - t0
+    mc_launches = gp.pines_accel_cuda.launches + gp.pines_accel_torch.cuda_calls
+    finals = res.y_final[:, :3]
+    std = np.std(finals - finals.mean(axis=0), axis=0)
+    ratio = float(np.linalg.norm(std) / np.linalg.norm(sig_map))
+    _log(f"  (b) Monte Carlo, B={EX02_B}, n_capture={EX02_N_CAPTURE}: {mc_wall:.3f} s, "
+         f"{res.n_ok / mc_wall:.2f} traj/s, n_ok/n_runs {res.n_ok}/{res.n_runs}, iterations "
+         f"{res.iterations}, mean accepted steps {float(np.mean(res.n_accepted)):.2f}, mean rejected "
+         f"{float(np.mean(res.n_rejected)):.2f}, traj_len {int(res.traj_len.min())}-"
+         f"{int(res.traj_len.max())}, gravity launches {mc_launches}; MC position sigmas "
+         f"{std.tolist()} km, MC/mapped ratio {ratio:.4f}")
+    if res.n_ok != EX02_B or not np.isfinite(res.y_final).all():
+        raise RuntimeError(f"Config 3 (b): {res.n_ok}/{EX02_B} lanes ok")
+    if mc_launches != 0:
+        raise RuntimeError(f"Config 3 (b): {mc_launches} gravity calls on a path without a field")
+    if not (np.array_equal(res.traj_y[:, 0, :], res.y_initial) and (res.traj_t[:, 0] == 0.0).all()):
+        raise RuntimeError("Config 3 (b): sample 0 is not the initial state")
+    if res.traj_len.max() > EX02_N_CAPTURE:
+        raise RuntimeError(f"Config 3 (b): capture saturated ({int(res.traj_len.max())} nodes)")
+    if not EX02_RATIO[0] <= ratio <= EX02_RATIO[1]:
+        raise RuntimeError(f"Config 3 (b): MC/mapped ratio {ratio} outside {EX02_RATIO}")
+
+    # (c) the exports
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        f_finals = res.to_parquet(Path(tmp) / "ex02_mc.parquet")
+        f_nodes = res.to_parquet(Path(tmp) / "ex02_mc_ensemble.parquet", trajectories=True,
+                                 step="nodes")
+        export_wall = time.perf_counter() - t0
+        rows = (pq.read_metadata(f_finals).num_rows, pq.read_metadata(f_nodes).num_rows)
+        mb = Path(f_nodes).stat().st_size / 1e6
+        cols = pq.read_table(f_nodes, columns=["run", "epoch_rel_s", "sma"])
+    _log(f"  (c) to_parquet: {export_wall:.3f} s; finals {rows[0]} rows, every node {rows[1]} rows "
+         f"({mb:.1f} MB)")
+    if rows != (EX02_B, int(np.sum(res.traj_len))) or not np.isfinite(cols["sma"].to_numpy()).all():
+        raise RuntimeError(f"Config 3 (c): parquet rows {rows}")
+
+    # (d) ex02's Encke mode on the same draws
+    sync()
+    t0 = time.perf_counter()
+    enc = mc.run_until_epoch_encke(scene.prop, scene.almanac, end, EX02_B, integ="abm", dt_s=600.0,
+                                   n_capture=EX02_N_CAPTURE, device=device)
+    sync()
+    enc_wall = time.perf_counter() - t0
+    d_enc = float(np.linalg.norm(enc.y_final[:, :3] - finals, axis=1).max())
+    std_gap = float(np.abs(np.std(enc.y_final[:, :3], axis=0) / np.std(finals, axis=0) - 1.0).max())
+    _log(f"  (d) Encke (abm, dt 600 s, {int(enc.n_accepted[0])} steps), B={EX02_B}: {enc_wall:.3f} s "
+         f"with its reference, {enc.n_ok / enc_wall:.2f} traj/s, n_ok {enc.n_ok}; finals "
+         f"{d_enc:.3e} km from (b)'s, sigmas within {std_gap:.2e}; {enc.traj_y.shape[1]} nodes a run")
+    if enc.n_ok != EX02_B or not np.array_equal(enc.y_initial, res.y_initial):
+        raise RuntimeError(f"Config 3 (d): {enc.n_ok}/{EX02_B} ok, or other draws than (b)'s")
+    if not (d_enc < ENCKE_FULL_TOL_KM and std_gap < 1e-3):
+        raise RuntimeError(f"Config 3 (d): Encke {d_enc} km from the full state, sigmas {std_gap}")
+
+    # (e) Config 2's Encke mode through the kernel
+    end2, y64 = kernel64.end_epoch, kernel64.y_initial[:B_TWIN]
+    mc2 = MonteCarlo(leo.mvn, seed=42)
+    prop_k = leo.propagator("auto")
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    sync()
+    t0 = time.perf_counter()
+    first = mc2.run_until_epoch_encke(prop_k, leo.almanac, end2, B_MAIN, integ="abm", device=device)
+    sync()
+    first_wall = time.perf_counter() - t0
+    first_launches = gp.pines_accel_cuda.launches
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    t0 = time.perf_counter()
+    enc2 = mc2.run_until_epoch_encke(prop_k, leo.almanac, end2, B_MAIN, integ="abm", device=device)
+    sync()
+    enc2_wall = time.perf_counter() - t0
+    launches_encke, twin_calls = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
+    span = (end2 - leo.mvn.template.epoch).to_seconds()
+    d_full = float(np.linalg.norm(enc2.y_final[:B_TWIN, :3] - kernel64.y_final[:B_TWIN, :3],
+                                  axis=1).max())
+    t0 = time.perf_counter()
+    twin = MonteCarlo(leo.mvn, seed=42).run_until_epoch_encke(
+        leo.propagator("torch"), leo.almanac, end2, B_TWIN, integ="abm", device=device, _y0=y64)
+    twin_wall = time.perf_counter() - t0
+    d_twin = float(np.linalg.norm(twin.y_final[:, :3] - enc2.y_final[:B_TWIN, :3], axis=1).max())
+    _log(f"  (e) Config 2 Encke (fixed, abm, dt {span / int(enc2.n_accepted[0]):.2f} s, "
+         f"{int(enc2.n_accepted[0])} steps), B={B_MAIN} over {span:g} s: first call with its "
+         f"reference {first_wall:.3f} s ({first_launches} kernel launches), timed {enc2_wall:.3f} s, "
+         f"{enc2.n_ok / enc2_wall:.2f} traj/s, kernel launches {launches_encke}, twin CUDA calls "
+         f"{twin_calls}; first {B_TWIN} lanes {d_full:.3e} km from phase 5's full-state kernel run; "
+         f"twin rerun ({twin_wall:.1f} s) {d_twin:.3e} km from the kernel's")
+    if first.n_ok != B_MAIN or enc2.n_ok != B_MAIN or twin.n_ok != B_TWIN:
+        raise RuntimeError(f"Config 2 Encke: {enc2.n_ok}/{B_MAIN}, twin {twin.n_ok}/{B_TWIN} ok")
+    if not np.array_equal(enc2.y_initial[:B_TWIN], y64):
+        raise RuntimeError("Config 2 Encke: other draws than phase 5's")
+    if launches_encke <= 0 or twin_calls != 0:
+        raise RuntimeError(f"Config 2 Encke did not run through the kernel: {launches_encke} launches, "
+                           f"{twin_calls} twin calls on CUDA")
+    if not (d_full < ENCKE_FULL_TOL_KM and d_twin < ENCKE_TWIN_TOL_KM):
+        raise RuntimeError(f"Config 2 Encke: {d_full} km from the full state, {d_twin} km from the twin")
+    _log(f"Config 3 phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches_encke=launches_encke, encke_traj_per_s=enc2.n_ok / enc2_wall,
+                map_estimates_per_s=len(sol.y_est) / map_wall, mc_traj_per_s=res.n_ok / mc_wall,
+                ex02_encke_traj_per_s=enc.n_ok / enc_wall)
+
+
 def phase_gmat(device="cuda"):
     """GMAT's one-day two-body truth through `integrator.propagate` on
     `device`: the five adaptive tableaus (RSSCartesianState, 0.1-30 s,
@@ -1274,10 +1524,11 @@ def main() -> None:
                                                     device="cuda")
     if warm.n_ok != warm.n_runs:
         raise RuntimeError(f"warm-up: {warm.n_ok}/{warm.n_runs} lanes ok")
-    launches = run_and_rerun(42, mvn, prop21, alm, epoch, args.duration_s, gp, "main path")
+    launches, kernel64 = run_and_rerun(42, mvn, prop21, alm, epoch, args.duration_s, gp, "main path")
 
-    # phase 6: 70x70 JGM3 split over half an hour through the kernel, and its twin rerun
-    launches70 = run_and_rerun(42, mvn, propagator_for(stor70), alm, epoch, SECONDS_70X70, gp, "70x70 path")
+    # phase 6: 70x70 JGM3 split over a quarter hour through the kernel, and its twin rerun
+    launches70, _ = run_and_rerun(42, mvn, propagator_for(stor70), alm, epoch, SECONDS_70X70, gp,
+                                  "70x70 path")
 
     # phase 6b: the OD leg; 6c: the flagship OD leg on its truth
     stor21 = GravityFieldData.from_cof(jgm3, 21, 21, True, Frames.IAU_EARTH)
@@ -1292,6 +1543,9 @@ def main() -> None:
 
     # phase 6f: Config 5, lunar orbit determination on the 80x80 field
     config5 = phase_config5(gp)
+
+    # phase 6g: Config 3, covariance mapping and the Monte Carlo, and Config 2's Encke mode
+    config3 = phase_config3(gp, SimpleNamespace(propagator=prop21, mvn=mvn, almanac=alm), kernel64)
 
     # phase 7: summary
     _log(f"chip_smoke.py command time: {time.perf_counter() - _T_START:.1f} s")
@@ -1335,6 +1589,11 @@ def main() -> None:
         "bound_ms_80x80_b1": k3["times"]["moon80x80_b1"][1],
         f"ms_80x80_b{B_EX04_STM}": k3["times"][f"moon80x80_b{B_EX04_STM}"][0],
         f"bound_ms_80x80_b{B_EX04_STM}": k3["times"][f"moon80x80_b{B_EX04_STM}"][1],
+        "launches_encke": config3["launches_encke"],
+        "encke_traj_per_s": config3["encke_traj_per_s"],
+        "ex02_map_estimates_per_s": config3["map_estimates_per_s"],
+        "ex02_mc_traj_per_s": config3["mc_traj_per_s"],
+        "ex02_encke_traj_per_s": config3["ex02_encke_traj_per_s"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

@@ -2,7 +2,9 @@
 
 Torch port of nyx_tpu/dynamics/srp.py: cannonball SRP, flux 1367 W/m^2 at
 1 AU scaled by (AU/r)^2, Cr * A area, illumination factor from the
-max-occultation shadow model. Acceleration points from Sun to spacecraft.
+max-occultation shadow model over a list of shadow bodies (`cislunar`:
+the Earth and the Moon). Acceleration points from Sun to spacecraft.
+Estimating Cr (`estimate`, `estimation_index`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +25,11 @@ class SolarPressure:
     @classmethod
     def default(cls, *shadow_bodies) -> "SolarPressure":
         return cls(tuple(shadow_bodies) or (NAIF.EARTH,))
+
+    @classmethod
+    def cislunar(cls) -> "SolarPressure":
+        """Earth and Moon shadows (the reference's srp.py:32)."""
+        return cls((NAIF.EARTH, NAIF.MOON))
 
     def required_bodies(self):
         return (NAIF.SUN,) + tuple(self.shadow_bodies)

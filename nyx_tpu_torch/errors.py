@@ -12,7 +12,7 @@ from __future__ import annotations
 
 __all__ = [
     "NyxError", "StateError", "ConfigError", "GuidanceConfigError", "PropagationError",
-    "PropagationNaNError", "TrajError", "EventError",
+    "PropagationNaNError", "TrajError", "EventError", "MonteCarloError",
 ]
 
 
@@ -50,3 +50,8 @@ class TrajError(NyxError, ValueError):
 
 class EventError(TrajError):
     """Event search failures: event never found in the arc (md/events)."""
+
+
+class MonteCarloError(NyxError, ValueError):
+    """Monte Carlo queries that need data the run did not keep (capture
+    buffers, initial states, a located event)."""

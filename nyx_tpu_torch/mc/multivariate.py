@@ -4,8 +4,10 @@ Torch port of nyx_tpu/mc/multivariate.py: dispersions on StateParameters
 (orbital elements, Cr/Cd/mass) are mapped into the 9-dim Cartesian state
 through the Jacobian of the parameters wrt the state (`torch.func.jacfwd`,
 float64 on the CPU), the covariance is rotated with the pseudo-inverse, and
-samples are drawn with an SVD square root, the reference's scheme. Draws come
-from an explicit `torch.Generator`; they are not the JAX package's draws.
+samples are drawn with an SVD square root, the reference's scheme.
+`from_covariance` takes a Cartesian covariance directly (a 6x6 is
+zero-padded to 9x9). Draws come from an explicit `torch.Generator`; they
+are not the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -26,12 +28,13 @@ class MvnSpacecraft:
         self.dispersions = list(dispersions)
         frame = template.frame
         self.mu = frame.mu
+        self.radius_km = frame.radius_km or 0.0
         self._nominal = template.to_vector()
 
         params = [d.parameter for d in self.dispersions]
 
         def param_vec(y):
-            return torch.stack([param_mod.value(p, y, self.mu) for p in params])
+            return torch.stack([param_mod.value(p, y, self.mu, self.radius_km) for p in params])
 
         nominal = torch.tensor(self._nominal, dtype=torch.float64, device="cpu")
         jac = torch.func.jacfwd(param_vec)(nominal).numpy()  # [n_params, 9]
@@ -42,8 +45,30 @@ class MvnSpacecraft:
         self.covar = jinv @ np.diag(sigmas**2) @ jinv.T  # [9, 9]
         self.mean_shift = jinv @ means
 
-        u, s, _vt = np.linalg.svd(self.covar, hermitian=True)
-        self.sqrt_covar = u @ np.diag(np.sqrt(np.maximum(s, 0.0)))
+        self.sqrt_covar = _svd_sqrt(self.covar)
+
+    @classmethod
+    def new(cls, template: Spacecraft, dispersions) -> "MvnSpacecraft":
+        return cls(template, dispersions)
+
+    @classmethod
+    def from_covariance(cls, template: Spacecraft, covar) -> "MvnSpacecraft":
+        """Zero-mean dispersions with the Cartesian covariance `covar`
+        ([n, n], n <= 9, zero-padded to the 9x9 state covariance)."""
+        self = object.__new__(cls)
+        self.template = template
+        self.dispersions = []
+        frame = template.frame
+        self.mu = frame.mu
+        self.radius_km = frame.radius_km or 0.0
+        self._nominal = template.to_vector()
+        covar = np.asarray(covar, dtype=np.float64)
+        n = covar.shape[0]
+        self.covar = np.zeros((9, 9))
+        self.covar[:n, :n] = covar
+        self.mean_shift = np.zeros(9)
+        self.sqrt_covar = _svd_sqrt(self.covar)
+        return self
 
     def sample(self, n: int, generator: torch.Generator, *, device,
                dtype=torch.float64) -> torch.Tensor:
@@ -53,3 +78,9 @@ class MvnSpacecraft:
         mean = torch.from_numpy(self._nominal + self.mean_shift)
         states = mean + z @ torch.from_numpy(self.sqrt_covar).T
         return states.to(device=device, dtype=dtype)
+
+
+def _svd_sqrt(covar: np.ndarray) -> np.ndarray:
+    """U sqrt(S) of the SVD of a symmetric PSD covariance, for sampling."""
+    u, s, _vt = np.linalg.svd(covar, hermitian=True)
+    return u @ np.diag(np.sqrt(np.maximum(s, 0.0)))

@@ -4,7 +4,8 @@ Host-side numpy copy of nyx_tpu/md/trajectory.py:1-234: `hermite_eval`,
 and a `Trajectory` built from a propagation's captured nodes with the
 13-sample sliding-window Hermite interpolation of position and velocity
 (linear in the other columns), including the window's thinning of
-near-coincident nodes; its queries (first/last, every, every_between,
+near-coincident nodes, at one time or at many (`interpolate_many`, one
+divided-difference table a window); its queries (first/last, every, every_between,
 sample_values, resample, rebuild, filter_by_*) and its parquet and OEM
 export (io/export.py); the frame transform (`to_frame`: a centre change
 through the almanac, a rotation through J2000 with the transport term
@@ -36,12 +37,10 @@ _IAU_FRAMES = {NAIF.EARTH: Frames.IAU_EARTH, NAIF.MOON: Frames.IAU_MOON, NAIF.MA
                NAIF.SUN: Frames.IAU_SUN}
 
 
-def hermite_eval(ts, ys, yds, t):
-    """Hermite interpolation with derivatives at `t`.
-
-    ts [n], ys [n, k] values, yds [n, k] derivatives. Returns (y [k], yd [k]).
-    Newton divided-difference formulation on 2n doubled nodes.
-    """
+def _divided_differences(ts, ys, yds):
+    """(doubled nodes z [2n], Newton coefficients q[0, :] [2n, k]) of the
+    Hermite interpolant of values ys [n, k] and derivatives yds [n, k] at
+    ts [n]."""
     n, k = ys.shape
     m = 2 * n
     z = np.repeat(ts, 2)
@@ -57,18 +56,34 @@ def hermite_eval(ts, ys, yds, t):
     for j in range(2, m):
         for i in range(m - j):
             q[i, j] = (q[i + 1, j - 1] - q[i, j - 1]) / (z[i + j] - z[i])
-    # the Newton form and its derivative, accumulated term by term
-    val = np.zeros(k)
-    dval = np.zeros(k)
-    prod = 1.0
-    dprod = 0.0
-    val += q[0, 0]
-    for j in range(1, m):
+    return z, q[0]
+
+
+def _newton_eval(z, q0, t):
+    """The Newton form with coefficients q0 [m, k] on nodes z [m] and its
+    derivative at t (a float, or an array [T]: values [T, k]), accumulated
+    term by term."""
+    t = np.asarray(t, dtype=np.float64)[..., None]
+    val = np.zeros(t.shape[:-1] + q0.shape[1:])
+    dval = np.zeros_like(val)
+    prod = np.ones_like(t)
+    dprod = np.zeros_like(t)
+    val += q0[0]
+    for j in range(1, len(z)):
         dprod = dprod * (t - z[j - 1]) + prod
         prod = prod * (t - z[j - 1])
-        val = val + q[0, j] * prod
-        dval = dval + q[0, j] * dprod
+        val = val + q0[j] * prod
+        dval = dval + q0[j] * dprod
     return val, dval
+
+
+def hermite_eval(ts, ys, yds, t):
+    """Hermite interpolation with derivatives at `t`.
+
+    ts [n], ys [n, k] values, yds [n, k] derivatives. Returns (y [k], yd [k]).
+    Newton divided-difference formulation on 2n doubled nodes.
+    """
+    return _newton_eval(*_divided_differences(ts, ys, yds), float(t))
 
 
 @dataclass
@@ -109,44 +124,50 @@ class Trajectory:
     def _state_at_index(self, i: int) -> Spacecraft:
         return self.template.set_vector(self.epoch0 + float(self.ts[i]), self.ys[i])
 
-    def _window(self, t_rel: float):
-        i = int(np.searchsorted(self.ts, t_rel))
-        half = INTERPOLATION_SAMPLES // 2
-        lo = max(0, min(i - half, len(self.ts) - INTERPOLATION_SAMPLES))
-        hi = min(len(self.ts), lo + INTERPOLATION_SAMPLES)
-        return lo, hi
-
     def interpolate(self, t_rel: float) -> np.ndarray:
         """Interpolated flat state at relative seconds (Hermite pos/vel,
         linear in the other columns)."""
-        if not (self.ts[0] - 1e-9 <= t_rel <= self.ts[-1] + 1e-9):
+        return self.interpolate_many(np.array([t_rel], dtype=np.float64))[0]
+
+    def interpolate_many(self, t_rel) -> np.ndarray:
+        """[T, N] interpolated flat states at relative seconds t_rel [T], each
+        as `interpolate` gives it: the times that share a 13-node window
+        share its divided differences."""
+        t_rel = np.asarray(t_rel, dtype=np.float64)
+        bad = (t_rel < self.ts[0] - 1e-9) | (t_rel > self.ts[-1] + 1e-9)
+        if bad.any():
             raise TrajError(
-                f"epoch {t_rel} s outside trajectory [{self.ts[0]}, {self.ts[-1]}]"
+                f"epoch {t_rel[bad][0]} s outside trajectory [{self.ts[0]}, {self.ts[-1]}]"
             )
-        lo, hi = self._window(t_rel)
-        ts = self.ts[lo:hi]
-        ys = self.ys[lo:hi]
-        # thin near-coincident nodes: adaptive-step bursts can put tiny
-        # steps next to long ones in one window, and the high-degree Newton
-        # divided differences then cancel catastrophically. Every node lies
-        # on the trajectory, so dropping those closer than a quarter of the
-        # window's mean spacing loses nothing.
-        if len(ts) > 2:
-            min_dt = 0.25 * (ts[-1] - ts[0]) / (len(ts) - 1)
-            keep = [0]
-            for i in range(1, len(ts)):
-                if ts[i] - ts[keep[-1]] >= min_dt or i == len(ts) - 1:
-                    keep.append(i)
-            if len(keep) < len(ts):
-                ts, ys = ts[keep], ys[keep]
-        # normalize time for conditioning
-        tmid = ts[len(ts) // 2]
-        pos, vel = hermite_eval(ts - tmid, ys[:, 0:3], ys[:, 3:6], t_rel - tmid)
-        out = self.ys[0].copy()
-        out[0:3] = pos
-        out[3:6] = vel
+        half = INTERPOLATION_SAMPLES // 2
+        i = np.searchsorted(self.ts, t_rel)
+        lo = np.maximum(0, np.minimum(i - half, len(self.ts) - INTERPOLATION_SAMPLES))
+        out = np.repeat(self.ys[:1], len(t_rel), axis=0)
         for col in range(6, self.ys.shape[1]):
-            out[col] = np.interp(t_rel, self.ts, self.ys[:, col])
+            out[:, col] = np.interp(t_rel, self.ts, self.ys[:, col])
+        for w in np.unique(lo):
+            sel = lo == w
+            ts = self.ts[w:w + INTERPOLATION_SAMPLES]
+            ys = self.ys[w:w + INTERPOLATION_SAMPLES]
+            # thin near-coincident nodes: adaptive-step bursts can put tiny
+            # steps next to long ones in one window, and the high-degree
+            # Newton divided differences then cancel catastrophically. Every
+            # node lies on the trajectory, so dropping those closer than a
+            # quarter of the window's mean spacing loses nothing.
+            if len(ts) > 2:
+                min_dt = 0.25 * (ts[-1] - ts[0]) / (len(ts) - 1)
+                keep = [0]
+                for j in range(1, len(ts)):
+                    if ts[j] - ts[keep[-1]] >= min_dt or j == len(ts) - 1:
+                        keep.append(j)
+                if len(keep) < len(ts):
+                    ts, ys = ts[keep], ys[keep]
+            # normalize time for conditioning
+            tmid = ts[len(ts) // 2]
+            z, q0 = _divided_differences(ts - tmid, ys[:, 0:3], ys[:, 3:6])
+            pos, vel = _newton_eval(z, q0, t_rel[sel] - tmid)
+            out[sel, 0:3] = pos
+            out[sel, 3:6] = vel
         return out
 
     def at(self, epoch: Epoch) -> Spacecraft:
@@ -181,20 +202,17 @@ class Trajectory:
     def sample_values(self, parameter: str, step) -> tuple[np.ndarray, np.ndarray]:
         """(rel_seconds, values) of a StateParameter at a fixed step."""
         ts = np.arange(self.ts[0], self.ts[-1] + 1e-9, _secs(step))
-        ys = np.stack([self.interpolate(t) for t in ts])
-        return ts, self.values_of(parameter, ys)
+        return ts, self.values_of(parameter, self.interpolate_many(ts))
 
     def resample(self, step) -> "Trajectory":
         ts = np.arange(self.ts[0], self.ts[-1] + 1e-9, _secs(step))
-        ys = np.stack([self.interpolate(t) for t in ts])
-        return Trajectory(self.epoch0, ts, ys, self.template)
+        return Trajectory(self.epoch0, ts, self.interpolate_many(ts), self.template)
 
     def rebuild(self, epochs) -> "Trajectory":
         """New trajectory whose nodes sit exactly at `epochs` (any, possibly
         non-uniform, epochs), each interpolated from this trajectory."""
         ts = np.asarray([(e - self.epoch0).to_seconds() for e in epochs], dtype=np.float64)
-        ys = np.stack([self.interpolate(float(t)) for t in ts])
-        return Trajectory(self.epoch0, ts, ys, self.template)
+        return Trajectory(self.epoch0, ts, self.interpolate_many(ts), self.template)
 
     def filter_by_epoch(self, start: Epoch, end: Epoch) -> "Trajectory":
         """Sub-trajectory whose nodes fall in [start, end]."""
@@ -260,7 +278,7 @@ class Trajectory:
             raise ConfigError(f"ground track in {body_frame} of a trajectory about {self.template.frame}: "
                               "move the trajectory to its centre first (to_frame)")
         ts = np.arange(float(self.ts[0]), float(self.ts[-1]) + 1e-9, _secs(step))
-        rs = np.stack([self.interpolate(t)[:3] for t in ts])
+        rs = self.interpolate_many(ts)[:, :3]
         f64 = dict(dtype=torch.float64, device=device)
         dcm = body_frame.dcm_from_j2000(torch.as_tensor(self.epoch0.to_tdb_seconds() + ts, **f64))
         r_bf = apply_dcm(dcm, torch.as_tensor(rs, **f64)).cpu().numpy()
@@ -277,8 +295,8 @@ class Trajectory:
         t0 = max(float(self.ts[0]), float(other.ts[0]) - off)
         t1 = min(float(self.ts[-1]), float(other.ts[-1]) - off)
         ts = np.arange(t0, t1 + 1e-9, _secs(step))
-        mine = np.stack([self.interpolate(t)[:6] for t in ts])
-        theirs = np.stack([other.interpolate(t + off)[:6] for t in ts])
+        mine = self.interpolate_many(ts)[:, :6]
+        theirs = other.interpolate_many(ts + off)[:, :6]
         dcm = ric_dcm(torch.from_numpy(theirs[:, 0:3].copy()), torch.from_numpy(theirs[:, 3:6].copy())).numpy()
         dr = np.einsum("kij,kj->ki", dcm, mine[:, 0:3] - theirs[:, 0:3])
         dv = np.einsum("kij,kj->ki", dcm, mine[:, 3:6] - theirs[:, 3:6])

@@ -180,7 +180,12 @@ def filter_scan(phi, q_all, h_all, z_all, r_all, avail, p0, rej_thresh: float, g
     (the reference's `filter_scan`, scan_filter.py:799-845). Returns
     (deviations [M, d], covariances [M, d, d], prefit [M, T], postfit
     [M, T], ratios [M], rejected [M]). Raises if any innovation covariance
-    is not positive definite."""
+    is not positive definite. When no row holds a measurement (covariance
+    mapping, `predict_for`), the rows are time updates alone
+    (`_time_updates`): the masked measurement update's gain is ~1e-30 of
+    P H^T and changes nothing that float64 keeps."""
+    if not bool(avail.any()):
+        return _time_updates(phi, q_all, p0, z_all.shape[-1])
     dt, dev_ = p0.dtype, p0.device
     m_rows, d = phi.shape[0], p0.shape[-1]
     zero = torch.zeros((), dtype=dt, device=dev_)
@@ -217,6 +222,23 @@ def filter_scan(phi, q_all, h_all, z_all, r_all, avail, p0, rej_thresh: float, g
         raise PropagationError(
             f"innovation covariance not positive definite at {len(bad)} rows, first row {int(bad[0])}")
     return dev_all, p_all, prefit, postfit, ratio, rejected
+
+
+def _time_updates(phi, q_all, p0, n_types: int):
+    """`filter_scan`'s outputs over rows without measurements: P = Phi P
+    Phi^T + Q, symmetrized, row by row (three small operations a row
+    instead of the update's ~25); zero deviations and residuals, ratio 0,
+    nothing rejected."""
+    m_rows, d = phi.shape[0], p0.shape[-1]
+    p, p_all = p0, []
+    for i in range(m_rows):
+        p = phi[i] @ p @ phi[i].T + q_all[i]
+        p = 0.5 * (p + p.T)
+        p_all.append(p)
+    zeros = dict(dtype=p0.dtype, device=p0.device)
+    resid = torch.zeros(m_rows, n_types, **zeros)
+    return (torch.zeros(m_rows, d, **zeros), torch.stack(p_all), resid, resid.clone(),
+            torch.zeros(m_rows, **zeros), torch.zeros(m_rows, dtype=torch.bool, device=p0.device))
 
 
 def _psd_factor(m):

@@ -59,7 +59,9 @@ def _rk_stages(eom, a, b, b_star, c, t, y, h):
     """All stages of one RK step for every lane. Returns (increment,
     error vector); the caller applies the increment."""
     stages = b.shape[0]
-    hb = h[:, None]
+    # the step at the state's dtype keeps the combinations there (an f64
+    # step would promote a float32 state)
+    hb = h.to(y.dtype)[:, None]
     k = [eom(t, y)]
     for i in range(1, stages):
         wi = float(a[i, 0]) * k[0]
@@ -87,9 +89,10 @@ def propagate(
     eom_args: tuple = (),
     n_capture: int = 0,
     capture_stride: int = 1,
+    state_dtype: torch.dtype = torch.float64,
 ) -> PropResult:
-    """Propagate a batch of float64 states `y0` [B, N] for `duration_s`
-    (float, or [B] tensor; may be negative), on the device of `y0`.
+    """Propagate a batch of states `y0` [B, N] for `duration_s` (float, or
+    [B] tensor; may be negative), on the device of `y0`.
 
     `eom(t [B], y [B, N], *eom_args) -> [B, N]`; `finally_fn(t, y,
     *eom_args) -> y` runs on every accepted step (Dynamics::finally).
@@ -98,9 +101,13 @@ def propagate(
     (integrator.py:377-395): a full buffer overwrites its last slot, and
     `traj_len` saturates at K, which callers read as "grow and rerun".
     The writes are masked index writes on the device, with no host sync.
+    `state_dtype` is the dtype of the state, its Kahan compensation, the
+    RK combinations and the capture buffer (float32 for the Encke
+    deviation lanes, mc/encke.py); time, steps and the error norm stay
+    float64, as in the reference (integrator.py:155,184-195).
     """
-    if y0.dtype != torch.float64 or y0.dim() != 2:
-        raise ValueError(f"y0 must be a [B, N] float64 tensor, got {y0.dtype} {tuple(y0.shape)}")
+    if y0.dtype != state_dtype or y0.dim() != 2:
+        raise ValueError(f"y0 must be a [B, N] {state_dtype} tensor, got {y0.dtype} {tuple(y0.shape)}")
     if eom_args:
         inner_eom, inner_fin = eom, finally_fn
         eom = lambda t, y: inner_eom(t, y, *eom_args)  # noqa: E731
@@ -136,7 +143,7 @@ def propagate(
         # column K is a drop slot for lanes that write nothing this step
         lanes = torch.arange(B, device=y0.device)
         traj_t = torch.zeros(B, K + 1, **f64)
-        traj_y = torch.zeros(B, K + 1, N, **f64)
+        traj_y = torch.zeros(B, K + 1, N, dtype=state_dtype, device=y0.device)
         traj_len = torch.zeros(B, **i32)
 
     n_iter = 0
@@ -160,7 +167,7 @@ def propagate(
             err = torch.zeros(B, **f64)
             accept = torch.ones(B, dtype=torch.bool, device=y0.device)
         else:
-            err = options.error_ctrl(err_vec, next_y, y)
+            err = options.error_ctrl(err_vec, next_y, y).to(torch.float64)
             # A clamped (overshooting) step is NOT force-accepted: the first
             # step can overshoot, and a rejected clamped step shrinks h and
             # retries like any other.

@@ -477,7 +477,7 @@ def test_results_final_values_of(sk_runs):
     res_ref, res = sk_runs[0][6]
     yf_ref = np.asarray(res_ref.y_final)
     port = Results(res.epoch0, res.end_epoch, res.template, yf_ref, res.status, res.n_accepted,
-                   res.n_rejected)
+                   res.n_rejected, device="cpu")
     for p in ("sma", "ecc", "inc"):
         np.testing.assert_allclose(port.final_values_of(p), np.asarray(res_ref.final_values_of(p)),
                                    rtol=F64, atol=1e-15)
