@@ -46,7 +46,7 @@ raises and exits non-zero:
    (examples/03_geo_analysis.py:248-350): 25 lanes, 8x8 JGM3 split,
    Sun and Moon point masses, SRP with an Earth shadow, a 0.472 N /
    4,435 s thruster under the eclipse-gated Ruggiero law, RK89 at 1e-10
-   with a 30 s floor, over 8 h of its 30 days, after a 600 s warm-up, with
+   with a 30 s floor, over 6 h of its 30 days, after a 600 s warm-up, with
    its kernel launches counted and one EOM call's CUDA launches profiled;
    then 4 of its lanes over the first 2 h through the kernel and the twin
    (final positions within 1e-6 km, the same final modes);
@@ -55,7 +55,7 @@ raises and exits non-zero:
    SRP, drag, RK89 at 1e-12) through `Propagator.rk89(...).with_state(sc,
    almanac)` and `for_duration_with_traj` with n_capture 32,768, over a cut
    depth of 3,600 s of the example's day (at B = 1 an iteration launches
-   ~24,000 kernels, ~0.3-0.5 s; the hour holds the arc's first apoapsis,
+   ~15,000 kernels, ~0.2-0.3 s; the hour holds the arc's first apoapsis,
    at ~1,675 s), timed, with one EOM call profiled; its f64 field runs the
    port's f64 recursion, never the kernel (the reference sends only
    float32 evaluations to Pallas), so the kernel's launch count must stay
@@ -99,6 +99,21 @@ raises and exits non-zero:
    through the kernel (launches counted, no twin primal call on CUDA), the
    first 64 lanes within 2e-3 km of phase 5's 64-lane full-state kernel
    run, and within 1e-9 km of the same lanes through the twin;
+6h. mission design, the reference's scenes at their published sizes: (a)
+   the targeter from tests/test_targeting.py's LEO (sma half an orbit
+   later by FD and by dual, the VNC sma and ecc pair, a position target)
+   in two-body, then under 21x21 JGM3 split at 1e-10 through the kernel
+   (launches counted, no twin primal call on CUDA), and the sma target by
+   FD and by dual again with the twin forced (the same Newton iterations,
+   corrections within 1e-12 km/s);
+   (b) finite-burn targeting (`thrust_dir`, `thrust_dir_rate`) and
+   `convert_impulsive_mnvr`, each maneuver flown again and held to the
+   rocket equation; (c) the 3-node minimum-fuel multiple shooting; (d) the
+   Earth -> Mars porkchop over the 2020 window at one day (43,200 cells)
+   and test_lambert.py's 12 x 12 grid, each against the CPU; (e) Davis'
+   B-plane, test_sequence.py's sequence, and the state-carried STM over
+   one orbit under the split field against central differences; printed
+   as "Mission design phase";
 7. print the command time and the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
@@ -152,12 +167,15 @@ SECONDS_70X70 = 900.0
 OD_WARM_S = 3600.0
 FLAGSHIP_SECONDS = 43_200.0
 # Config 4's station keeping (examples/03_geo_analysis.py:248-350): its 25
-# lanes over 8 h of the 30 days (one day until Config 3's phase needed the
-# time; the day took 95-169 s on NVIDIA H100 80GB HBM3 cards at 700 W), a
-# NEXT-STEP-class thruster, and 4 lanes in the kernel-vs-twin rerun.
+# lanes over 6 h of the 30 days (one day until Config 3's phase needed the
+# time, 8 h until mission design's did; the day took 95-169 s on NVIDIA
+# H100 80GB HBM3 cards at 700 W), a NEXT-STEP-class thruster, and 4 lanes in
+# the kernel-vs-twin rerun. At 6 h every lane has thrusted and stopped
+# (0.159-0.176 kg on the CPU, under the 0.234 kg of 6 h at full thrust);
+# at 4 h every lane would still thrust, at the guard's bound.
 B_SK = 25
 B_SK_TWIN = 4
-SK_SECONDS = 8 * 3600.0
+SK_SECONDS = 6 * 3600.0
 # its kernel-vs-twin rerun's prefix (6 h until Config 5's phase needed the
 # time, 4 h until Config 3's did)
 SK_TWIN_PREFIX_S = 2 * 3600.0
@@ -171,7 +189,9 @@ SK_ISP_S = 4435.0
 SK_TWIN_TOL_KM = 1e-6
 # Config 1 (examples/01_orbit_prop.py): the example's day cut to its first
 # hour, and the window its one apoapsis (~1,675 s) must fall in, whose start
-# is where `until_event`'s fresh instance starts.
+# is where `until_event`'s fresh instance starts. (The first 1,800 s take
+# 416 of the hour's 432 iterations on the card: the shadow's entry at
+# ~1,330 s holds most of them, so a shorter arc saves little.)
 EX01_SECONDS = 3600.0
 EX01_APOAPSIS_S = (1500.0, 1800.0)
 # GMAT's one-day two-body LEO truth (tests/test_propagators_gmat.py:19-45,
@@ -225,6 +245,40 @@ EX02_N_CAPTURE = 256
 EX02_RATIO = (0.95, 1.05)
 ENCKE_FULL_TOL_KM = 2e-3
 ENCKE_TWIN_TOL_KM = 1e-9
+# Mission design (phase 6h), the reference's scenes (tests/test_targeting.py,
+# test_lambert.py, test_sequence.py): their epoch; the split field's
+# tolerance (at 1e-12 its f32 part sets the step); kernel vs twin, km/s; dual
+# vs FD, km/s: 1e-6 in two-body (test_targeting.py:104), and under the split
+# field 1e-6 on the corrections' magnitudes: there the FD Jacobian (1e-6 km/s
+# perturbations) sees the f32 field's rounding, and Newton's min-norm steps
+# land at other points of the solution set (one objective, three
+# variables): the reference's own dual and FD corrections part by 4.6e-6
+# km/s (JAX on the CPU), the port's FD moves 1.2e-5 km/s between the CPU
+# and the card, their magnitudes agree within 1e-6; the rocket equation, kg; the
+# impulsive conversion's bounds (test_targeting.py:302-303); multiple
+# shooting's total delta-v, km/s, and node misses, km (:168-180); porkchop,
+# the card against the CPU, relative, in every finite cell but the
+# ill-conditioned ones, which are held to MD_PORKCHOP_SENS times their own
+# rounding sensitivity (their relative change on the CPU under a
+# MD_PORKCHOP_EPS relative change of the departure positions): one cell of
+# the 2020 grid (97 days, C3 176 km^2/s^2, a transfer angle near 180 deg)
+# moves 7.4e-8 under 1e-15 and differs 4.5e-7 between the card and the CPU;
+# the window's minimum C3 (test_lambert.py:134);
+# the STM against central differences (steps 1e-2 km, 1e-5 km/s) on the
+# entries of at least a tenth of the largest, relative; Davis' B-plane
+# targeting delta-v (test_targeting.py:45-47), km/s.
+MD_EPOCH = (2020, 1, 1)
+MD_SPLIT_TOL = 1e-10
+MD_TWIN_TOL_KM_S = 1e-12
+MD_DUAL_FD_KM_S = 1e-6
+MD_ROCKET_KG = 1e-6
+MD_CONVERT_KM, MD_CONVERT_KM_S = 0.02, 2e-5
+MD_MS_DV_KM_S, MD_MS_NODE_KM = 2.0, 2e-3
+MD_PORKCHOP_REL, MD_PORKCHOP_SENS, MD_PORKCHOP_EPS = 1e-9, 100.0, 1e-15
+MD_C3 = (8.0, 25.0)
+MD_STM_REL, MD_STM_BIG = 1e-5, 0.1
+MD_CD_KM, MD_CD_KM_S = 1e-2, 1e-5
+DAVIS_DV = (-0.25386251697606466, -0.18774460089778605, 0.046145009839345504)
 # f32 against f64 filter algebra (tests/test_od.py:1782-1792): positions
 # (km) and sigmas (relative).
 OD_F32_POS_KM = 2e-3
@@ -905,10 +959,10 @@ def _eom_launch_count(prop, sc, alm, y0):
 
 
 def phase_geo_sk(gp, stor8):
-    """Config 4's station-keeping Monte Carlo on the card: 25 lanes over one
-    day of its 30, after a 600 s warm-up, then 4 of its lanes over the
-    first 6 h through the kernel and through the twin. Returns the
-    summary's numbers."""
+    """Config 4's station-keeping Monte Carlo on the card: B_SK lanes over
+    SK_SECONDS of its 30 days, after a 600 s warm-up, then B_SK_TWIN of its
+    lanes over SK_TWIN_PREFIX_S through the kernel and through the twin.
+    Returns the summary's numbers."""
     from nyx_tpu_torch.constants import STD_GRAVITY_M_S2
     from nyx_tpu_torch.ephem import Almanac
     from nyx_tpu_torch.mc import MonteCarlo, MvnSpacecraft, StateDispersion
@@ -1442,6 +1496,358 @@ def phase_gmat(device="cuda"):
     return out
 
 
+def _md_solve(label, fn, sync):
+    """Run one targeter solve, timed; raise if it did not converge or an
+    objective's error exceeds its tolerance."""
+    sync()
+    t0 = time.perf_counter()
+    sol = fn()
+    sync()
+    wall = time.perf_counter() - t0
+    _log(f"  {label}: {'converged' if sol.converged else 'NOT converged'} in {sol.iterations} Newton "
+         f"iterations, {sol.prop_iterations} propagator iterations, {wall:.3f} s; correction "
+         f"{np.array2string(sol.correction, precision=9)}, errors {np.array2string(sol.achieved_errors, precision=3)}")
+    if not sol.converged:
+        raise RuntimeError(f"mission design {label}: {sol}")
+    return sol, wall
+
+
+def _md_targeter_scenes(prop, leo, epoch, device, sync, tag,
+                        names=("sma_fd", "sma_dual", "vnc", "position")):
+    """Scene (a)'s solves (tests/test_targeting.py:80-141) through `prop`:
+    sma 8,000 km half an orbit later by FD and by dual, the VNC sma and ecc
+    pair 2,000 s later, the apoapsis radius by position 1,000 s later; those
+    in `names`. Returns {name: (solution, wall)}."""
+    from nyx_tpu_torch.md.objective import Objective
+    from nyx_tpu_torch.md.opti import Targeter
+
+    half = epoch + leo.orbit.period_s / 2.0
+    sma = [Objective.within_tolerance("sma", 8000.0, 1e-3)]
+    scenes = {
+        "sma_fd": (sma, lambda o: Targeter.delta_v(prop, o).try_achieve_fd(leo, epoch, half, device=device)),
+        "sma_dual": (sma, lambda o: Targeter.delta_v(prop, o).try_achieve_dual(leo, epoch, half, device=device)),
+        "vnc": ([Objective.within_tolerance("sma", 7500.0, 1e-3), Objective.within_tolerance("ecc", 0.05, 1e-6)],
+                lambda o: Targeter.vnc(prop, o).try_achieve_from(leo, epoch, epoch + 2000.0, device=device)),
+        "position": ([Objective.within_tolerance("apoapsis_radius", 7465.0, 1e-3)],
+                     lambda o: Targeter.delta_r(prop, o).try_achieve_from(leo, epoch, epoch + 1000.0,
+                                                                          device=device)),
+    }
+    out = {}
+    for name in names:
+        objectives, run = scenes[name]
+        out[name] = _md_solve(f"{tag} {name}", lambda: run(objectives), sync)
+        errs = out[name][0].achieved_errors
+        if not all(abs(e) <= o.tolerance for e, o in zip(errs, objectives)):
+            raise RuntimeError(f"mission design {tag} {name}: errors {errs} over the tolerances")
+    return out
+
+
+def phase_mission_design(gp, stor21, device="cuda"):
+    """Mission design on `device` (the card; "cpu" rehearses it), the
+    reference's own scenes at their published sizes:
+
+    (a) the targeter from tests/test_targeting.py:80-141's LEO: sma 8,000 km
+        half an orbit later by FD and by dual, the VNC pair, the position
+        target; in two-body (RK89 at 1e-12), then under the 21x21 JGM3
+        split field at 1e-10 through the kernel (its launches counted from
+        0, no twin primal call on CUDA), then again with backend="torch";
+    (b) finite-burn targeting, `thrust_dir` and `thrust_dir_rate`
+        (:184-262), each maneuver flown again and held to the rocket
+        equation, and `convert_impulsive_mnvr` (:263-303) against the
+        impulsive truth;
+    (c) the 3-node minimum-fuel multiple shooting of :147-182;
+    (d) the Earth -> Mars barycenter porkchop over the 2020 window at one
+        day: 120 departures from 2020-06-01 by 360 arrivals from
+        2020-11-01 (43,200 cells) on the analytic ephemeris, and
+        test_lambert.py:118-140's 12 x 12 grid, each against a CPU run of
+        `porkchop_grid` on the same inputs;
+    (e) the B-plane of Davis' case (test_targeting.py:24-52), the sequence
+        of test_sequence.py:26-48, and the state-carried STM over one
+        orbit of (a)'s LEO under the split field against central
+        differences of the same propagation.
+
+    Returns the summary's numbers."""
+    from nyx_tpu_torch import Epoch, Frames, Orbit, Spacecraft
+    from nyx_tpu_torch.constants import GM, NAIF, STD_GRAVITY_M_S2
+    from nyx_tpu_torch.cosmic.bplane import BPlane, BPlaneTarget, try_achieve_b_plane
+    from nyx_tpu_torch.cosmic.spacecraft import GuidanceMode, Thruster
+    from nyx_tpu_torch.dynamics import (
+        DiscreteEvent, DynamicsConfig, Harmonics, LocalFrame, Maneuver, OrbitalDynamics, Phase,
+        PhysicalProperties, PropagatorConfig, SpacecraftDynamics, SpacecraftSequence,
+    )
+    from nyx_tpu_torch.ephem import Almanac
+    from nyx_tpu_torch.md.objective import Objective
+    from nyx_tpu_torch.md.opti import Targeter, convert_impulsive_mnvr
+    from nyx_tpu_torch.md.opti.multishoot import CostFunction, MultipleShooting, equidistant_nodes
+    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator, integrator
+    from nyx_tpu_torch.tools import porkchop, porkchop_grid
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    eme = Frames.EME2000
+    epoch = Epoch.from_gregorian_utc(*MD_EPOCH)
+    _log(f"Mission design phase ({_card_line()}):")
+
+    # (a) the targeter: two-body, split through the kernel, split through the twin
+    two_body = Propagator.rk89(SpacecraftDynamics.new(OrbitalDynamics.two_body(eme)), IntegratorOptions())
+
+    def split_prop(backend):
+        field = Harmonics.from_stor(stor21, "split", backend)
+        return Propagator.rk89(SpacecraftDynamics.new(OrbitalDynamics.from_model(field, eme)),
+                               IntegratorOptions(tolerance=MD_SPLIT_TOL))
+
+    leo = Spacecraft.from_orbit(Orbit.keplerian(7378.1363, 0.01, 28.5, 10.0, 5.0, 0.0, epoch, eme))
+    a2b = _md_targeter_scenes(two_body, leo, epoch, device, sync, "two-body")
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    t0 = time.perf_counter()
+    akern = _md_targeter_scenes(split_prop("auto"), leo, epoch, device, sync, "21x21 split, kernel")
+    split_wall = time.perf_counter() - t0
+    launches, twin_calls = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
+    atwin = _md_targeter_scenes(split_prop("torch"), leo, epoch, device, sync, "21x21 split, twin",
+                                ("sma_fd", "sma_dual"))
+    d_twin = max(float(np.abs(akern[k][0].correction - atwin[k][0].correction).max()) for k in atwin)
+    same_iters = all(akern[k][0].iterations == atwin[k][0].iterations for k in atwin)
+    fd, dual = a2b["sma_fd"][0].correction, a2b["sma_dual"][0].correction
+    d_dual = float(np.abs(fd - dual).max())
+    fd, dual = akern["sma_fd"][0].correction, akern["sma_dual"][0].correction
+    d_dual_split = abs(float(np.linalg.norm(fd) - np.linalg.norm(dual)))
+    solves = len(a2b) + len(akern) + len(atwin)
+    _log(f"  (a) Pines launches on the split solves {launches}, twin primal calls on CUDA {twin_calls}; "
+         f"split {split_wall:.3f} s for {len(akern)} solves; kernel vs twin (sma by FD and dual): same "
+         f"Newton iterations {same_iters}, corrections within {d_twin:.3e} km/s; dual vs FD {d_dual:.3e} km/s "
+         f"(two-body); split: magnitudes {d_dual_split:.3e} km/s apart, components "
+         f"{float(np.abs(fd - dual).max()):.3e}")
+    if launches <= 0 or twin_calls != 0:
+        raise RuntimeError(f"mission design (a): {launches} kernel launches, {twin_calls} twin calls on CUDA")
+    if not (same_iters and d_twin < MD_TWIN_TOL_KM_S):
+        raise RuntimeError(f"mission design (a): kernel vs twin {d_twin} km/s, same iterations {same_iters}")
+    if not (d_dual < MD_DUAL_FD_KM_S and d_dual_split < MD_DUAL_FD_KM_S):
+        raise RuntimeError(f"mission design (a): dual vs FD {d_dual} km/s (two-body), {d_dual_split} (split)")
+
+    walls = {"a": time.perf_counter() - t_phase}
+    t_part = time.perf_counter()
+
+    # (b) finite burns: thrust_dir, thrust_dir_rate, then the impulsive conversion
+    thruster = Thruster(thrust_N=400.0, isp_s=300.0)
+    mdot = thruster.thrust_N / (thruster.isp_s * STD_GRAVITY_M_S2)
+    sc = dataclasses.replace(Spacecraft.new(Orbit.keplerian(7000.0, 0.001, 28.5, 0.0, 0.0, 0.0, epoch, eme),
+                                            900.0, 100.0, 0.0, 0.0, 1.8, 2.2), thruster=thruster)
+    a0 = sc.orbit.sma_km
+    mnvr0 = Maneuver.from_time_invariant(epoch, epoch + 300.0, 1.0, [1.0, 0.0, 0.0], LocalFrame.VNC)
+    achieve = epoch + 3000.0
+
+    def fly(start_sc, mnvr, until):
+        """The maneuver flown as a plain law, then the coast to `until`:
+        (state at the burn's end, state at `until`)."""
+        pre = start_sc if start_sc.epoch == mnvr.start else \
+            two_body.with_state(start_sc, device=device).until_epoch(mnvr.start)
+        post = two_body.with_guidance(mnvr).with_state(dataclasses.replace(pre, mode=GuidanceMode.Thrust),
+                                                       device=device).until_epoch(mnvr.end)
+        fin = two_body.with_state(dataclasses.replace(post, mode=GuidanceMode.Coast),
+                                  device=device).until_epoch(until)
+        d_mass = abs((pre.prop_mass_kg - post.prop_mass_kg) - mnvr.thrust_prct * mdot * mnvr.duration_s)
+        return post, fin, d_mass
+
+    finite = {
+        "thrust_dir": ([Objective("sma", a0 + 150.0, 0.5)], Targeter.thrust_dir),
+        "thrust_dir_rate": ([Objective("sma", a0 + 120.0, 0.5), Objective("inc", 28.55, 5e-4)],
+                            Targeter.thrust_dir_rate),
+    }
+    d_rocket = 0.0
+    for name, (objectives, make) in finite.items():
+        sol, _ = _md_solve(name, lambda: make(two_body, objectives, mnvr0).try_achieve_from(
+            sc, epoch, achieve, device=device), sync)
+        solves += 1
+        mnvr = sol.to_mnvr()
+        _, fin, d_mass = fly(sc, mnvr, achieve)
+        d_rocket = max(d_rocket, d_mass)
+        d_sma = abs(fin.orbit.sma_km - objectives[0].desired_value)
+        _log(f"  {name} flown: {mnvr}; sma {d_sma:.3e} km from its target, rocket equation {d_mass:.3e} kg")
+        if not (0.0 < mnvr.thrust_prct <= 1.0 and d_sma < 1.0 and d_mass < MD_ROCKET_KG):
+            raise RuntimeError(f"mission design (b) {name}: {mnvr}, sma off {d_sma} km, mass off {d_mass} kg")
+    sc1 = dataclasses.replace(sc, orbit=Orbit.keplerian(7000.0, 0.001, 28.5, 0.0, 0.0, 0.0, epoch + 3600.0, eme))
+    dv = 0.025 * sc1.orbit.v_km_s / np.linalg.norm(sc1.orbit.v_km_s)  # 25 m/s prograde
+    sol, _ = _md_solve("convert_impulsive_mnvr", lambda: convert_impulsive_mnvr(sc1, dv, two_body, device=device),
+                       sync)
+    solves += 1
+    mnvr = sol.to_mnvr()
+    truth = two_body.with_state(sc1.with_dv(dv), device=device).until_epoch(mnvr.end + 900.0)
+    _, fin, d_mass = fly(sc1, mnvr, mnvr.end + 900.0)
+    d_rocket = max(d_rocket, d_mass)
+    err_r = float(np.linalg.norm(fin.orbit.r_km - truth.orbit.r_km))
+    err_v = float(np.linalg.norm(fin.orbit.v_km_s - truth.orbit.v_km_s))
+    _log(f"  convert_impulsive_mnvr flown: {mnvr}; {err_r:.3e} km, {err_v:.3e} km/s from the impulsive truth, "
+         f"rocket equation {d_mass:.3e} kg")
+    if not (50.0 < mnvr.duration_s < 80.0 and err_r < MD_CONVERT_KM and err_v < MD_CONVERT_KM_S
+            and d_mass < MD_ROCKET_KG):
+        raise RuntimeError(f"mission design (b) conversion: {mnvr}, {err_r} km, {err_v} km/s, {d_mass} kg")
+
+    walls["b"] = time.perf_counter() - t_part
+
+    # (c) multiple shooting
+    x0 = Spacecraft.from_orbit(Orbit.keplerian(7378.0, 0.01, 28.5, 0.0, 0.0, 0.0, epoch, eme))
+    xf = Orbit.keplerian(7900.0, 0.01, 28.5, 0.0, 0.0, 25.0, epoch + 450.0, eme)
+    sync()
+    t0 = time.perf_counter()
+    ms = MultipleShooting(two_body, x0, xf, equidistant_nodes(x0, xf, 3, tolerance_km=1e-3))
+    msol = ms.solve(CostFunction.MinimumFuel, device=device)
+    sync()
+    ms_wall = time.perf_counter() - t0
+    d_nodes = max(float(np.linalg.norm(seg.achieved_state.orbit.r_km - node.position()))
+                  for node, seg in zip(msol.nodes, msol.solutions))
+    d_end = float(np.linalg.norm(msol.nodes[-1].position() - xf.r_km))
+    solves += msol.solves
+    _log(f"  (c) {msol}: {ms_wall:.3f} s, {msol.solves} segment solves, {msol.newton_iterations} Newton "
+         f"iterations, {msol.prop_iterations} propagator iterations; nodes hit within {d_nodes:.3e} km")
+    if not (len(msol.solutions) == 3 and all(s.converged for s in msol.solutions)
+            and msol.total_dv_km_s() < MD_MS_DV_KM_S and d_nodes < MD_MS_NODE_KM and d_end < 1e-9):
+        raise RuntimeError(f"mission design (c): {msol}, nodes {d_nodes} km, end node {d_end} km")
+
+    # (d) porkchops
+    t_part = time.perf_counter()
+    alm = Almanac()
+
+    def grid(dep0, n_dep, dep_days, arr0, n_arr, arr_days, label):
+        deps = [Epoch.from_gregorian_utc(*dep0) + k * dep_days * 86_400.0 for k in range(n_dep)]
+        arrs = [Epoch.from_gregorian_utc(*arr0) + k * arr_days * 86_400.0 for k in range(n_arr)]
+        sync()
+        t0 = time.perf_counter()
+        pc = porkchop(alm, NAIF.EARTH, NAIF.MARS_BARYCENTER, deps, arrs, device=device)
+        sync()
+        wall = time.perf_counter() - t0
+        # the grid solve alone, on the same inputs, on the device and on the CPU
+        rv = {b: [alm.state(b, NAIF.SUN, e) for e in es]
+              for b, es in ((NAIF.EARTH, deps), (NAIF.MARS_BARYCENTER, arrs))}
+        r1 = np.repeat(np.stack([r for r, _ in rv[NAIF.EARTH]]), n_arr, axis=0)
+        v1 = np.repeat(np.stack([v for _, v in rv[NAIF.EARTH]]), n_arr, axis=0)
+        r2 = np.tile(np.stack([r for r, _ in rv[NAIF.MARS_BARYCENTER]]), (n_dep, 1))
+        v2 = np.tile(np.stack([v for _, v in rv[NAIF.MARS_BARYCENTER]]), (n_dep, 1))
+        t_dep = np.array([e.to_tdb_seconds() for e in deps])
+        tof = (np.array([e.to_tdb_seconds() for e in arrs])[None, :] - t_dep[:, None]).ravel()
+        cells = n_dep * n_arr
+
+        def solve(dev, scale=1.0):
+            args = [torch.as_tensor(a, dtype=torch.float64, device=dev) for a in (r1 * scale, v1, r2, v2, tof)]
+            return [t.cpu().numpy() for t in porkchop_grid(*args, GM.SUN)]
+
+        solve(device)
+        sync()
+        t0 = time.perf_counter()
+        on_dev = solve(device)
+        sync()
+        grid_wall = time.perf_counter() - t0
+        on_cpu = solve("cpu")
+        # each cell's own rounding sensitivity: its relative change on the CPU
+        # when the departure positions move by MD_PORKCHOP_EPS relative
+        sens = np.zeros(cells)
+        for scale in (1.0 + MD_PORKCHOP_EPS, 1.0 - MD_PORKCHOP_EPS):
+            for a, b in zip(solve("cpu", scale), on_cpu):
+                sens = np.maximum(sens, np.nan_to_num(np.abs(a - b) / np.abs(b)))
+        bound = np.maximum(MD_PORKCHOP_REL, MD_PORKCHOP_SENS * sens)
+        d_rel, same_nan, n_over, n_ill = 0.0, True, 0, int((bound > MD_PORKCHOP_REL).sum())
+        for a, b in zip(on_dev, on_cpu):
+            same_nan &= bool(np.array_equal(np.isnan(a), np.isnan(b)))
+            ok = np.isfinite(b)
+            rel = np.abs(a[ok] - b[ok]) / np.abs(b[ok])
+            d_rel, n_over = max(d_rel, float(rel.max())), n_over + int((rel > bound[ok]).sum())
+        same_call = np.array_equal(pc.c3_km2_s2.ravel(), on_dev[0], equal_nan=True)
+        dep, arr, c3min = pc.best("c3_km2_s2")
+        _log(f"  (d) {label}: {cells} cells, porkchop() {wall:.3f} s; the grid solve {grid_wall * 1e3:.3f} ms, "
+             f"{cells / grid_wall:.4g} cells/s; against the CPU: {d_rel:.3e} relative at most, {n_over} cells over "
+             f"their bound ({n_ill} ill-conditioned), same NaN cells "
+             f"{same_nan} ({int(np.isnan(on_cpu[0]).sum())}); min C3 {c3min:.4f} km^2/s^2 departing {dep}, "
+             f"arriving {arr}")
+        if not (n_over == 0 and same_nan and same_call and MD_C3[0] < c3min < MD_C3[1]
+                and dep.to_tai_seconds() > Epoch.from_gregorian_utc(2020, 7, 1).to_tai_seconds()
+                and np.nanmin(pc.vinf_arrival_km_s) > 1.0):
+            raise RuntimeError(f"mission design (d) {label}: {d_rel} relative, NaN cells same {same_nan}, "
+                               f"min C3 {c3min} departing {dep}")
+        return cells / grid_wall
+
+    cells_per_s = grid((2020, 6, 1), 120, 1, (2020, 11, 1), 360, 1, "2020 window at one day")
+    grid((2020, 6, 20), 12, 5, (2020, 12, 1), 12, 10, "test_lambert.py's 12 x 12 grid")
+
+    walls["c"], walls["d"] = ms_wall, time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (e) the B-plane, the sequence, the state-carried STM
+    davis = Orbit.cartesian(546507.344255845, -527978.380486028, 531109.066836708, -4.9220589268733,
+                            5.36316523097915, -5.22166308425181, Epoch.from_gregorian_utc(2016, 1, 1), eme)
+    bp = BPlane.from_orbit(davis)
+    dv_b, achieved = try_achieve_b_plane(davis, BPlaneTarget.from_bt_br(13135.7982982557, 5022.26511510685))
+    d_dv = float(np.abs(dv_b - np.array(DAVIS_DV)).max())
+    _log(f"  (e) Davis' B-plane: B.T {bp.b_t_km:.6f} km, B.R {bp.b_r_km:.6f} km; targeting delta-v "
+         f"{d_dv:.3e} km/s from the reference's")
+    if not (abs(bp.b_t_km - 45892.323790) < 1e-4 and abs(bp.b_r_km - 10606.210428) < 1e-4 and d_dv < 1e-9):
+        raise RuntimeError(f"mission design (e) B-plane: {bp}, delta-v {d_dv}")
+
+    t1, t2 = epoch + 1800.0, epoch + 2400.0
+    burn = Maneuver.from_time_invariant(t1, t2, 1.0, [1.0, 0.0, 0.0], LocalFrame.VNC)
+    seq = SpacecraftSequence(
+        seq={
+            epoch: Phase.Activity("coast", "two_body"),
+            t1: Phase.Activity("burn", "two_body", guidance={"law": burn, "thruster_model": "main"},
+                               on_entry=DiscreteEvent("staging", properties=PhysicalProperties(dry_mass_kg=20.0))),
+            t2: Phase.Activity("coast2", "two_body"),
+            epoch + 3000.0: Phase.Terminate(),
+        },
+        thruster_sets={"main": Thruster(thrust_N=50.0, isp_s=300.0)},
+        propagators={"two_body": PropagatorConfig(DynamicsConfig(frame=eme))},
+    )
+    sc_seq = Spacecraft(Orbit.keplerian(8000.0, 0.01, 30.0, 0, 0, 0, epoch, eme), dry_mass_kg=120.0,
+                        prop_mass_kg=80.0)
+    trajs = seq.propagate(sc_seq, device=device)
+    burned = trajs[1].first.prop_mass_kg - trajs[1].last.prop_mass_kg
+    d_burn = abs(burned - 50.0 / (300.0 * STD_GRAVITY_M_S2) * 600.0)
+    _log(f"  (e) sequence: {len(trajs)} phases, dry mass at the burn {trajs[1].first.dry_mass_kg:.6f} kg, "
+         f"burned {burned:.9f} kg ({d_burn:.3e} kg from the rocket equation), final {trajs[2].last.epoch}")
+    if not (len(trajs) == 3 and abs(trajs[1].first.dry_mass_kg - 100.0) < 1e-12 and d_burn < 1e-6
+            and abs(trajs[2].last.prop_mass_kg - trajs[1].last.prop_mass_kg) < 1e-12
+            and trajs[2].last.orbit.energy_km2_s2 > sc_seq.orbit.energy_km2_s2
+            and abs((trajs[2].last.epoch - epoch).to_seconds() - 3000.0) < 1e-6):
+        raise RuntimeError("mission design (e): the sequence's masses, energy or timeline are off")
+
+    prop = split_prop("auto")
+    period = leo.orbit.period_s
+    gp.pines_accel_cuda.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    inst = prop.with_state(leo.with_stm(), device=device)
+    phi = inst.for_duration(period).stm
+    sync()
+    stm_wall = time.perf_counter() - t0
+    stm_launches = gp.pines_accel_cuda.launches
+    # central differences of the same propagation, the 12 perturbed lanes one batch
+    dyn = prop.dynamics
+    y = leo.to_vector()
+    steps = np.array([MD_CD_KM] * 3 + [MD_CD_KM_S] * 3)
+    rows = [y + s * h * np.eye(9)[j] for j in range(6) for s, h in ((1.0, steps[j]), (-1.0, steps[j]))]
+    res = integrator.propagate(dyn.make_eom(), torch.as_tensor(np.stack(rows), device=device), period, prop.opts,
+                               prop.method, finally_fn=dyn.make_finally(),
+                               eom_args=(dyn.build_context(epoch, period, None, device=device),
+                                         dict(dry_mass_kg=0.0, srp_area_m2=0.0, drag_area_m2=0.0)))
+    yf = res.y.cpu().numpy()
+    jac = np.stack([(yf[2 * j] - yf[2 * j + 1]) / (2 * steps[j]) for j in range(6)], axis=1)[:6]
+    block = phi[:6, :6]
+    big = np.abs(block) >= MD_STM_BIG * np.abs(block).max()
+    d_stm = float((np.abs(block - jac)[big] / np.abs(block)[big]).max())
+    _log(f"  (e) STM over one orbit ({period:.1f} s) under the split field: {stm_wall:.3f} s, "
+         f"{inst.last_result.iterations} iterations, Pines launches {stm_launches}; against central "
+         f"differences {d_stm:.3e} relative on the {int(big.sum())} entries of at least {MD_STM_BIG:g} of the "
+         f"largest ({np.abs(block).max():.4g})")
+    if not (d_stm < MD_STM_REL and np.array_equal(phi[6:, 6:], np.eye(3)) and stm_launches > 0):
+        raise RuntimeError(f"mission design (e): STM {d_stm} relative from central differences")
+
+    walls["e"] = time.perf_counter() - t_part
+    wall = time.perf_counter() - t_phase
+    _log(f"  walls: " + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()))
+    _log(f"Mission design phase: {wall:.1f} s, {solves} targeter solves ({solves / wall:.3f} a second)")
+    return dict(launches=launches, porkchop_cells_per_s=cells_per_s, solves=solves, wall=wall)
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--duration-s", type=float, default=86_400.0,
@@ -1547,6 +1953,9 @@ def main() -> None:
     # phase 6g: Config 3, covariance mapping and the Monte Carlo, and Config 2's Encke mode
     config3 = phase_config3(gp, SimpleNamespace(propagator=prop21, mvn=mvn, almanac=alm), kernel64)
 
+    # phase 6h: mission design
+    mission = phase_mission_design(gp, stor21)
+
     # phase 7: summary
     _log(f"chip_smoke.py command time: {time.perf_counter() - _T_START:.1f} s")
     ms21, bound21, bound_by = k3["times"]["21x21"]
@@ -1594,6 +2003,8 @@ def main() -> None:
         "ex02_map_estimates_per_s": config3["map_estimates_per_s"],
         "ex02_mc_traj_per_s": config3["mc_traj_per_s"],
         "ex02_encke_traj_per_s": config3["ex02_encke_traj_per_s"],
+        "launches_mission_design": mission["launches"],
+        "porkchop_cells_per_s": mission["porkchop_cells_per_s"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

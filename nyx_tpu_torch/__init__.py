@@ -9,6 +9,7 @@ States are float64 tensors on an explicit device; positions in km,
 velocities in km/s, epochs in TAI/TDB seconds past J2000.
 """
 
+from .cosmic.bplane import BPlane, BPlaneTarget, try_achieve_b_plane
 from .cosmic.frames import Frame, Frames
 from .cosmic.orbit import Orbit
 from .cosmic.spacecraft import Spacecraft
@@ -22,6 +23,9 @@ __all__ = [
     "Frames",
     "Orbit",
     "Spacecraft",
+    "BPlane",
+    "BPlaneTarget",
+    "try_achieve_b_plane",
     "IntegratorOptions",
     "Propagator",
 ]

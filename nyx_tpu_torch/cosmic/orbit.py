@@ -4,9 +4,10 @@ Element conversions are batched functions over trailing-dimension tensors,
 differentiable with `torch.func`; the host `Orbit` class builds a scalar
 state from elements in float64 on the CPU and reads its elements back
 (`rmag_km` through `fpa_deg`, `value`) the same way. The RIC, VNC and RCN
-local frames and the true -> eccentric -> mean anomaly conversions are
-batched functions too. The inverse anomaly conversions and analytic
-propagation (`Orbit.at_epoch`) are not ported yet.
+local frames, the anomaly conversions both ways and the analytic two-body
+propagation behind `Orbit.at_epoch` are batched functions too; Kepler's
+equation takes a fixed 20 Newton iterations with no early exit, as the
+reference's (orbit.py:127-144).
 """
 
 from __future__ import annotations
@@ -117,6 +118,38 @@ def ecc_to_mean_anomaly(ea, ecc):
     return torch.where(ecc < 1.0, ell, hyp)
 
 
+def mean_to_ecc_anomaly(ma, ecc, iters: int = 20):
+    """Kepler's equation by Newton iteration, a fixed count with no early
+    exit (no host sync): eccentric anomaly for e < 1, hyperbolic for e > 1."""
+    ea = torch.where(ecc < 0.8, ma, torch.full_like(ma, math.pi))
+    for _ in range(iters):
+        ea = ea - (ea - ecc * torch.sin(ea) - ma) / (1 - ecc * torch.cos(ea))
+    hh = torch.asinh(ma / torch.clamp(ecc, min=1 + _EPS))
+    for _ in range(iters):
+        hh = hh - (ecc * torch.sinh(hh) - hh - ma) / (ecc * torch.cosh(hh) - 1)
+    return torch.where(ecc < 1.0, ea, hh)
+
+
+def ecc_to_true_anomaly(ea, ecc):
+    """Eccentric (or hyperbolic) -> true anomaly, radians."""
+    ell = 2 * torch.atan2(
+        torch.sqrt(torch.clamp(1 + ecc, min=_EPS)) * torch.sin(ea / 2),
+        torch.sqrt(torch.clamp(1 - ecc, min=_EPS)) * torch.cos(ea / 2),
+    )
+    hyp = 2 * torch.atan(torch.sqrt(torch.clamp((ecc + 1) / (ecc - 1), min=_EPS)) * torch.tanh(ea / 2))
+    return torch.where(ecc < 1.0, ell, hyp)
+
+
+def keplerian_propagate(r, v, mu: float, dt, iters: int = 20):
+    """Analytic two-body propagation of (r, v) by dt seconds through the
+    mean anomaly: (r [..., 3], v [..., 3])."""
+    el = keplerian_from_cartesian(r, v, mu)
+    n = torch.sqrt(mu / torch.abs(el["sma"]) ** 3)
+    ma = ecc_to_mean_anomaly(true_to_ecc_anomaly(el["ta"], el["ecc"]), el["ecc"]) + n * dt
+    ta = ecc_to_true_anomaly(mean_to_ecc_anomaly(ma, el["ecc"], iters), el["ecc"])
+    return cartesian_from_keplerian(el["sma"], el["ecc"], el["inc"], el["raan"], el["aop"], ta, mu)
+
+
 def ric_dcm(r, v):
     """DCM [..., 3, 3] from inertial to RIC (radial, in-track, cross-track)
     frame rows."""
@@ -195,6 +228,14 @@ class Orbit:
         from ..md.param import value as param_value
 
         return float(param_value(param, self._vector(), self.frame.mu, self.frame.radius_km or 0.0))
+
+    def at_epoch(self, epoch: Epoch) -> "Orbit":
+        """Analytic two-body propagation to `epoch`, on the host in float64."""
+        dt = (epoch - self.epoch).to_seconds()
+        r, v = keplerian_propagate(torch.from_numpy(np.asarray(self.r_km, np.float64)),
+                                   torch.from_numpy(np.asarray(self.v_km_s, np.float64)),
+                                   self.frame.mu, dt)
+        return Orbit(r.numpy(), v.numpy(), epoch, self.frame)
 
     def to_cartesian_pos_vel(self) -> np.ndarray:
         return np.concatenate([self.r_km, self.v_km_s])

@@ -6,8 +6,9 @@ The propagated state vector layout is the reference's:
 
 Ensembles live on the device as `[B, 9]` float64 tensors, with guided
 dynamics appending the guidance mode as a tenth column; this class is the
-host-side scalar wrapper, with an optional thruster and the guidance mode.
-A state-carried STM is not ported (the OD filter builds its STMs itself).
+host-side scalar wrapper, with an optional thruster, the guidance mode and
+an optional state-carried 9x9 STM (`with_stm`), which `PropInstance`
+propagates beside the state.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from ..constants import STD_GRAVITY_M_S2
 from ..errors import StateError
 from ..time import Epoch
 from .orbit import Orbit
+
+STATE_DIM = 9
 
 
 class GuidanceMode:
@@ -55,6 +58,7 @@ class Spacecraft:
     cd: float = 2.2
     thruster: Optional[Thruster] = None
     mode: int = GuidanceMode.Coast
+    stm: Optional[np.ndarray] = None  # (9, 9) when enabled
 
     @classmethod
     def from_orbit(cls, orbit: Orbit) -> "Spacecraft":
@@ -88,6 +92,19 @@ class Spacecraft:
 
     def with_srp(self, srp_area_m2, cr) -> "Spacecraft":
         return replace(self, srp_area_m2=srp_area_m2, cr=cr)
+
+    def with_dv(self, dv_km_s) -> "Spacecraft":
+        """A copy with `dv_km_s` (inertial, km/s) added to the velocity."""
+        orbit = Orbit(self.orbit.r_km.copy(), self.orbit.v_km_s + np.asarray(dv_km_s, dtype=np.float64),
+                      self.orbit.epoch, self.orbit.frame)
+        return replace(self, orbit=orbit)
+
+    def with_stm(self) -> "Spacecraft":
+        """A copy carrying an identity STM, propagated beside the state."""
+        return replace(self, stm=np.eye(STATE_DIM))
+
+    def with_orbit(self, orbit: Orbit) -> "Spacecraft":
+        return replace(self, orbit=orbit)
 
     @property
     def total_mass_kg(self) -> float:

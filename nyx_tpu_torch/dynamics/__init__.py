@@ -1,7 +1,25 @@
 from .drag import AtmDensity, Drag
 from .gravity import Harmonics
-from .guidance import GuidanceLaw, LocalFrame, Ruggiero
+from .guidance import (
+    GuidanceLaw,
+    ImpulsiveManeuver,
+    Kluever,
+    LocalFrame,
+    Maneuver,
+    ManeuverSequence,
+    ParametricManeuver,
+    Ruggiero,
+    ThrustDirectionReplay,
+)
 from .orbital import OrbitalDynamics, PointMasses
+from .sequence import (
+    DiscreteEvent,
+    DynamicsConfig,
+    Phase,
+    PhysicalProperties,
+    PropagatorConfig,
+    SpacecraftSequence,
+)
 from .spacecraft_dyn import SpacecraftDynamics
 from .srp import SolarPressure
 
@@ -16,4 +34,16 @@ __all__ = [
     "GuidanceLaw",
     "LocalFrame",
     "Ruggiero",
+    "Kluever",
+    "Maneuver",
+    "ManeuverSequence",
+    "ImpulsiveManeuver",
+    "ThrustDirectionReplay",
+    "ParametricManeuver",
+    "PhysicalProperties",
+    "DiscreteEvent",
+    "DynamicsConfig",
+    "PropagatorConfig",
+    "Phase",
+    "SpacecraftSequence",
 ]

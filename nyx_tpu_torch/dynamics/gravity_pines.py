@@ -88,16 +88,21 @@ def pines_accel_torch(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
 def pines_tangent_torch(r_bf, dr_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
                         diag1: float):
     """Forward-mode tangent [B, 3] of the twin at `r_bf` along `dr_bf`, over
-    the same degree window: `torch.func.jvp` through the plain recursion.
-    The kernel's primal pairs with it in `gravity.PinesAccel`."""
+    the same degree window: the plain recursion carried with its tangent by
+    hand, each operation's derivative the one `torch.func.jvp` takes, in the
+    same order, so the two agree bit for bit at a tenth of the host's cost
+    (functorch adds tens of microseconds an operation). The kernel's primal
+    pairs with it in `gravity.PinesAccel`."""
     if r_bf.is_cuda:
         pines_tangent_torch.cuda_calls += 1
-    return torch.func.jvp(
-        lambda r: _pines_twin(r, tab, q_lo, W, mu, radius, diag1), (r_bf,), (dr_bf,)
-    )[1]
+    return _pines_twin_tangent(r_bf, dr_bf, tab, q_lo, W, mu, radius, diag1)
 
 
 def _pines_twin(r_bf, tab, q_lo, W, mu, radius, diag1):
+    """The plain recursion. Only the Legendre rows, the radius powers and
+    the sums run degree by degree; each degree's four terms are computed
+    for every degree at once, each element by the kernel's operations in
+    the kernel's order, so the bits are the kernel's."""
     dt, dev = r_bf.dtype, r_bf.device
     n_steps, _, W_pad = tab.shape
     x, y, z = r_bf[:, 0], r_bf[:, 1], r_bf[:, 2]
@@ -115,53 +120,175 @@ def _pines_twin(r_bf, tab, q_lo, W, mu, radius, diag1):
         rms.append(s_ * rm - t_ * im)
         ims.append(s_ * im + t_ * rm)
     pad = [torch.zeros_like(x)] * (W_pad - W)
-    r_ms = torch.stack(rms + pad, dim=1)
-    i_ms = torch.stack(ims + pad, dim=1)
-    zcol = torch.zeros_like(r_ms[:, :1])
-    rm1 = torch.cat([zcol, r_ms[:, :-1]], dim=1)
-    im1 = torch.cat([zcol, i_ms[:, :-1]], dim=1)
+    ri = torch.stack([torch.stack(rms + pad, dim=1), torch.stack(ims + pad, dim=1)])  # [2, B, W_pad]
+    ri1 = torch.cat([torch.zeros_like(ri[..., :1]), ri[..., :-1]], dim=-1)
 
     m_f = torch.arange(W_pad, dtype=dt, device=dev)
     onehot0 = (m_f == 0).to(dt)
     onehot1 = (m_f == 1).to(dt)
     row_nm2 = onehot0.expand(r_bf.shape[0], W_pad)
     row_nm1 = (u * _SQRT3) * onehot0 + diag1 * onehot1
-
-    acc_x = torch.zeros_like(r_ms)
-    acc_y = torch.zeros_like(r_ms)
-    acc_z = torch.zeros_like(r_ms)
-    acc_w = torch.zeros_like(r_ms)
     rho_q = mu_over_r * rho
+    acc = torch.zeros((4,) + row_nm1.shape, dtype=dt, device=dev)  # x, y, z, w
+    sign = _sign(dt, dev)
+    kept = []
     for k in range(n_steps):
-        b_row, c_row, diag_v, offd_v, c_q, s_q, vr01, vr11 = tab[k]
+        b_row, c_row, diag_v, offd_v = tab[k, 0], tab[k, 1], tab[k, 2], tab[k, 3]
         row_n = u * b_row * row_nm1 - c_row * row_nm2 + diag_v + offd_v * u
         rho_q = rho_q * rho
         if k + 1 > q_lo:
-            d_ = c_q * r_ms + s_q * i_ms
-            e_ = c_q * rm1 + s_q * im1
-            f_ = s_q * rm1 - c_q * im1
-            row_p1 = torch.cat([row_nm1[:, 1:], zcol], dim=1)
-            row_n_p1 = torch.cat([row_n[:, 1:], zcol], dim=1)
-            rr = rho_q * (1.0 / radius)
-            acc_x = acc_x + (rr * m_f) * row_nm1 * e_
-            acc_y = acc_y + (rr * m_f) * row_nm1 * f_
-            acc_z = acc_z + (rr * vr01) * row_p1 * d_
-            acc_w = acc_w - (rr * vr11) * row_n_p1 * d_
+            kept.append((row_nm1, row_n, rho_q))
         row_nm1, row_nm2 = row_n, row_nm1
-
-    ax, ay, az, aw = (_sum_orders(a) for a in (acc_x, acc_y, acc_z, acc_w))
+        if kept and (len(kept) == _CHUNK or k == n_steps - 1):
+            # the chunk's degrees k0..k, their terms at once, summed in order
+            rn1, rn, rq = (torch.stack(a) for a in zip(*kept))
+            tk = tab[k + 1 - len(kept):k + 1]
+            g, _ = _terms_g(tk, ri, ri1, None, None)
+            p = sign * ((_terms_c(rq * (1.0 / radius), tk, m_f) * _terms_row(rn1, rn)) * g)
+            for i in range(len(kept)):
+                acc = acc + p[i]
+            kept = []
+    ax, ay, az, aw = _sum_orders(acc).unbind(0)
     return torch.stack([ax + aw * s_, ay + aw * t_, az + aw * u_], dim=1)
 
 
+def _sign(dt, dev):
+    """[4, 1, 1]: the sign each term adds with, acc_w's subtracting (a - b is
+    a + (-b) exactly, and (-1) * b is -b). Made on the device, no copy from
+    the host."""
+    return (1.0 - 2.0 * (torch.arange(4, device=dev) == 3).to(dt))[:, None, None]
+
+
+def _terms_g(tk, ri, ri1, d_ri, d_ri1):
+    """e_, f_, d_, d_ of degrees `tk` [K, 8, W] (and their tangents along
+    d_ri, when given): [K, 4, B, W]. d_ = C r_m + S i_m, e_ = C r_m-1 +
+    S i_m-1, f_ = S r_m-1 - C i_m-1 (as S r_m-1 + (-C) i_m-1, the same
+    bits)."""
+    c_q, s_q = tk[:, 4, None, :], tk[:, 5, None, :]
+    cs = torch.stack([c_q, s_q, c_q, c_q], dim=1)  # [K, 4, 1, W]
+    sc = torch.stack([s_q, -c_q, s_q, s_q], dim=1)
+
+    def combine(a, a1):
+        return cs * torch.stack([a1[0], a1[0], a[0], a[0]]) + sc * torch.stack([a1[1], a1[1], a[1], a[1]])
+
+    return combine(ri, ri1), None if d_ri is None else combine(d_ri, d_ri1)
+
+
+def _terms_c(rr, tk, m_f):
+    """The four terms' factors rr*m, rr*m, rr*vr01, rr*vr11: [K, 4, B, W]
+    from rr [K, B, 1]."""
+    m_row = m_f.expand_as(tk[:, 6])
+    return rr[:, None] * torch.stack([m_row, m_row, tk[:, 6], tk[:, 7]], dim=1)[:, :, None, :]
+
+
+def _terms_row(rn1, rn):
+    """The four terms' rows: row_nm1, row_nm1, row_nm1 and row_n shifted one
+    order down: [K, 4, B, W]."""
+    zcol = torch.zeros_like(rn1[..., :1])
+    return torch.stack([rn1, rn1, torch.cat([rn1[..., 1:], zcol], -1), torch.cat([rn[..., 1:], zcol], -1)], 1)
+
+
+def _pines_twin_tangent(r_bf, dr_bf, tab, q_lo, W, mu, radius, diag1):
+    """The tangent of `_pines_twin` along `dr_bf`. Each value pairs a primal
+    operation with its forward derivative as autograd defines it: a product
+    a*b takes da*b + a*db, sqrt(q) dq / (2 sqrt(q)), 1/r -dr (1/r)^2, a sum
+    the sum of the tangents; a constant's tangent is zero and its terms are
+    dropped (autograd's zero tangents add nothing). Only the Legendre rows,
+    the radius powers and the sums run degree by degree; each degree's
+    terms are computed for every degree at once (each element by the same
+    operations, so the same bits), in chunks of _CHUNK degrees."""
+    dt, dev = r_bf.dtype, r_bf.device
+    n_steps, _, W_pad = tab.shape
+    x, y, z = r_bf[:, 0], r_bf[:, 1], r_bf[:, 2]
+    dx, dy, dz = dr_bf[:, 0], dr_bf[:, 1], dr_bf[:, 2]
+    r = torch.sqrt(x * x + y * y + z * z)
+    d_r = ((dx * x + dx * x) + (dy * y + dy * y) + (dz * z + dz * z)) / (r * 2)
+    rec = torch.reciprocal(r)
+    inv_r = rec * 1.0
+    d_inv = ((-d_r) * (rec * rec)) * 1.0
+    s_, t_, u_ = x * inv_r, y * inv_r, z * inv_r
+    ds, dt_, du_ = d_inv * x + dx * inv_r, d_inv * y + dy * inv_r, d_inv * z + dz * inv_r
+    rho = (radius * inv_r)[:, None]
+    d_rho = (d_inv * radius)[:, None]
+    mu_over_r = (mu * inv_r)[:, None]
+    d_mor = (d_inv * mu)[:, None]
+    u = u_[:, None]
+    du = du_[:, None]
+
+    zero = torch.zeros_like(x)
+    rms, ims, drms, dims = [torch.ones_like(x)], [zero], [zero], [zero]
+    for _ in range(1, W):
+        rm, im, drm, dim = rms[-1], ims[-1], drms[-1], dims[-1]
+        rms.append(s_ * rm - t_ * im)
+        ims.append(s_ * im + t_ * rm)
+        drms.append((drm * s_ + ds * rm) - (dim * t_ + dt_ * im))
+        dims.append((dim * s_ + ds * im) + (drm * t_ + dt_ * rm))
+    pad = [zero] * (W_pad - W)
+    # [2, B, W_pad]: the powers r_m, i_m and the same shifted one order up
+    ri = torch.stack([torch.stack(rms + pad, dim=1), torch.stack(ims + pad, dim=1)])
+    d_ri = torch.stack([torch.stack(drms + pad, dim=1), torch.stack(dims + pad, dim=1)])
+    zcol = torch.zeros_like(ri[..., :1])
+    ri1 = torch.cat([zcol, ri[..., :-1]], dim=-1)
+    d_ri1 = torch.cat([zcol, d_ri[..., :-1]], dim=-1)
+
+    # the Legendre rows and radius powers, degree by degree (sequential)
+    m_f = torch.arange(W_pad, dtype=dt, device=dev)
+    onehot0 = (m_f == 0).to(dt)
+    onehot1 = (m_f == 1).to(dt)
+    row_nm2 = onehot0.expand(r_bf.shape[0], W_pad)
+    d_row_nm2 = torch.zeros_like(row_nm2)
+    row_nm1 = (u * _SQRT3) * onehot0 + diag1 * onehot1
+    d_row_nm1 = (du * _SQRT3) * onehot0
+    rho_q = mu_over_r * rho
+    d_rho_q = d_rho * mu_over_r + d_mor * rho
+    d_acc = torch.zeros((4,) + row_nm1.shape, dtype=dt, device=dev)
+    acc_w = torch.zeros_like(row_nm1)  # the primal's, for the products with s, t, u
+    sign = _sign(dt, dev)
+    kept = []
+    for k in range(n_steps):
+        b_row, c_row, diag_v, offd_v = tab[k, 0], tab[k, 1], tab[k, 2], tab[k, 3]
+        ub = u * b_row
+        row_n = ub * row_nm1 - c_row * row_nm2 + diag_v + offd_v * u
+        d_row_n = (d_row_nm1 * ub + (du * b_row) * row_nm1) - c_row * d_row_nm2 + offd_v * du
+        d_rho_q = d_rho * rho_q + d_rho_q * rho
+        rho_q = rho_q * rho
+        if k + 1 > q_lo:
+            kept.append((row_nm1, d_row_nm1, row_n, d_row_n, rho_q, d_rho_q))
+        row_nm1, row_nm2, d_row_nm1, d_row_nm2 = row_n, row_nm1, d_row_n, d_row_nm1
+        if kept and (len(kept) == _CHUNK or k == n_steps - 1):
+            # the chunk's degrees at once, summed in order
+            rn1, drn1, rn, drn, rq, drq = (torch.stack(a) for a in zip(*kept))  # [K, B, W] / [K, B, 1]
+            tk = tab[k + 1 - len(kept):k + 1]
+            g, dg = _terms_g(tk, ri, ri1, d_ri, d_ri1)
+            c, dc = _terms_c(rq * (1.0 / radius), tk, m_f), _terms_c(drq * (1.0 / radius), tk, m_f)
+            row, drow = _terms_row(rn1, rn), _terms_row(drn1, drn)
+            p1 = c * row
+            dp2 = sign * (dg * p1 + (drow * c + dc * row) * g)
+            pw = p1[:, 3] * g[:, 3]
+            for i in range(len(kept)):
+                d_acc = d_acc + dp2[i]
+                acc_w = acc_w - pw[i]
+            kept = []
+
+    aw = _sum_orders(acc_w)
+    dax, day, daz, daw = _sum_orders(d_acc).unbind(0)
+    return torch.stack([dax + (ds * aw + daw * s_), day + (dt_ * aw + daw * t_),
+                        daz + (du_ * aw + daw * u_)], dim=1)
+
+
 def _sum_orders(acc):
-    """Sum over the order axis from m = 0 up, the kernel's order: with
-    every other operation also the kernel's, the twin and the kernel give
-    the same f32 bits, so a run through either takes the same steps."""
-    out = acc[:, 0]
-    for m in range(1, acc.shape[1]):
-        out = out + acc[:, m]
+    """Sum over the order axis (the last) from m = 0 up, the kernel's order:
+    with every other operation also the kernel's, the twin and the kernel
+    give the same f32 bits, so a run through either takes the same steps."""
+    out = acc[..., 0]
+    for m in range(1, acc.shape[-1]):
+        out = out + acc[..., m]
     return out
 
+
+# Degrees whose terms one pass computes at once (bounds the [degrees, 4, B,
+# W] temporaries at high degree and wide batches).
+_CHUNK = 16
 
 pines_accel_torch.cuda_calls = 0  # primal calls made on CUDA tensors
 pines_tangent_torch.cuda_calls = 0  # tangent calls made on CUDA tensors

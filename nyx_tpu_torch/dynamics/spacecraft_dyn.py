@@ -4,16 +4,19 @@ Torch port of nyx_tpu/dynamics/spacecraft_dyn.py: orbital dynamics + force
 models (SRP, drag) + an optional guidance law with propellant decrement, as
 one batched EOM over `[B, 9]` float64 states [x,y,z,vx,vy,vz,Cr,Cd,m_prop],
 with the STM over `[B, 90]` states. Guided dynamics append the guidance
-mode as a trailing column (`[B, 10]`), which the post-step hook updates.
+mode as a trailing column (`[B, 10]`, or `[B, 91]` with the STM), which
+the post-step hook updates.
 The force models evaluate in float32 and their sum is cast back to the
 state dtype.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Sequence
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..constants import STD_GRAVITY_M_S2
 from ..errors import ConfigError
@@ -95,39 +98,53 @@ class SpacecraftDynamics:
         the 81 of its row-major STM Phi, with Phi' = A Phi and A = d(y9')/d(y9)
         from 9 forward-mode passes. The reference vmaps one jvp over the 9
         unit tangents; here they are folded into the batch axis of one
-        `torch.func.jvp` over [9B, 9], so the gravity kernel, which cannot
-        run under vmap, takes the primal of every pass in one launch. Lane
+        forward-mode pass over [9B, 9] (autograd's dual tensors: the same
+        derivatives as `torch.func.jvp`, bit for bit, at half its host cost
+        an operation), so the gravity kernel, which cannot run under vmap,
+        takes the primal of every pass in one launch. Lane
         block 0 of that primal is the state derivative: lanes are
-        independent, so it is the [B, 9] EOM's value bit for bit."""
+        independent, so it is the [B, 9] EOM's value bit for bit. Guided,
+        the state is [B, 91], the mode last (the reference's layout,
+        spacecraft_dyn.py:189-213), and A includes the thrust's
+        dependence on the state through the law's direction and the mass."""
         core = self._core_eom(thruster)
-        if self.has_guidance:
-            if with_stm:
-                raise ConfigError("a guided EOM with the STM is not ported yet")
-            if thruster is None:
-                raise ConfigError("guided dynamics need the spacecraft's thruster")
-
-            def guided(t_rel, y, ctx, p):
+        guided = self.has_guidance
+        if guided and thruster is None:
+            raise ConfigError("guided dynamics need the spacecraft's thruster")
+        if guided and not with_stm:
+            def guided_eom(t_rel, y, ctx, p):
                 ydot = core(t_rel, y[:, :CORE_DIM], ctx, p, y[:, CORE_DIM])
                 return torch.cat([ydot, torch.zeros_like(y[:, CORE_DIM:])], dim=-1)
 
-            return guided
+            return guided_eom
         if not with_stm:
             return core
 
         def eom(t_rel, y, ctx, p):
             B = y.shape[0]
             y9 = y[:, :CORE_DIM]
+            mode9 = None
+            if guided:
+                # the folded batch tiles the lanes (block j holds every lane
+                # in order), so the mode and per-lane guidance parameters
+                # tile the same way, never interleave
+                mode9 = y[:, -1].repeat(CORE_DIM)
+                gp = ctx.guidance_params
+                if isinstance(gp, torch.Tensor) and gp.dim() == 2:
+                    ctx = replace(ctx, guidance_params=gp.repeat(CORE_DIM, 1))
             eye = torch.eye(CORE_DIM, dtype=y.dtype, device=y.device)
-            ydot, cols = torch.func.jvp(
-                lambda yy: core(t_rel.repeat(CORE_DIM), yy, ctx, p),
-                (y9.repeat(CORE_DIM, 1),),
-                (eye.repeat_interleave(B, dim=0),),
-            )
+            with fwAD.dual_level():
+                out = fwAD.unpack_dual(core(t_rel.repeat(CORE_DIM),
+                                            fwAD.make_dual(y9.repeat(CORE_DIM, 1), eye.repeat_interleave(B, dim=0)),
+                                            ctx, p, mode9))
+            ydot, cols = out.primal, out.tangent
             # cols[j*B + b, i] = A[b, i, j]
             a_mat = cols.reshape(CORE_DIM, B, CORE_DIM).permute(1, 2, 0)
-            phi = y[:, CORE_DIM:].reshape(B, CORE_DIM, CORE_DIM)
-            phi_dot = torch.matmul(a_mat, phi)
-            return torch.cat([ydot[:B], phi_dot.reshape(B, STM_DIM)], dim=-1)
+            phi = y[:, CORE_DIM:CORE_DIM + STM_DIM].reshape(B, CORE_DIM, CORE_DIM)
+            parts = [ydot[:B], torch.matmul(a_mat, phi).reshape(B, STM_DIM)]
+            if guided:
+                parts.append(torch.zeros_like(y[:, -1:]))  # the mode has no dynamics
+            return torch.cat(parts, dim=-1)
 
         return eom
 

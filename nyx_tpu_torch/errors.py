@@ -4,15 +4,16 @@ Copied from nyx_tpu/errors.py: one class per layer, each also subclassing
 the builtin (`ValueError`) the caller may already catch, under the common
 `NyxError`. `PropagationNaNError` is the port's own: the reference raises
 the builtin `ArithmeticError` on a NaN lane, so the port's class is both
-that and a `PropagationError`. The reference's other classes are not
-needed yet.
+that and a `PropagationError`. The reference's OD classes are not needed
+yet.
 """
 
 from __future__ import annotations
 
 __all__ = [
     "NyxError", "StateError", "ConfigError", "GuidanceConfigError", "PropagationError",
-    "PropagationNaNError", "TrajError", "EventError", "MonteCarloError",
+    "PropagationNaNError", "TrajError", "EventError", "TargetingError", "MonteCarloError",
+    "LambertError",
 ]
 
 
@@ -52,6 +53,16 @@ class EventError(TrajError):
     """Event search failures: event never found in the arc (md/events)."""
 
 
+class TargetingError(NyxError, RuntimeError):
+    """Differential-correction failures: singular Jacobian, max
+    iterations (md/opti TargetingError)."""
+
+
 class MonteCarloError(NyxError, ValueError):
     """Monte Carlo queries that need data the run did not keep (capture
     buffers, initial states, a located event)."""
+
+
+class LambertError(NyxError, ValueError):
+    """Lambert solver failures: 180-degree geometry, no multi-rev
+    solution, iteration limit (errors.rs LambertError)."""

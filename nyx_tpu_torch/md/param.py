@@ -3,9 +3,11 @@
 The parameter names, the set of those in degrees and the default event
 precisions are copied from the reference (md/param.py:20-104). `value`
 evaluates every parameter of the reference's `value` (md/param.py:106-222)
-on flat state tensors, the same formulas in float64, except two groups
-that raise `StateError`: the Brouwer mean elements (`brouwer_mean_short_*`)
-and the B-plane parameters (`bdot_r`, `bdot_t`, `b_ltof`).
+on flat state tensors, the same formulas in float64, the Brouwer mean
+short elements (`_brouwer_mean_short`, :234-) and the B-plane's B.R, B.T
+and linearized time of flight included. Every branch is on the parameter's
+name, never on a tensor's value, so `torch.func.jacfwd` traces `value`
+(the targeter's dual Jacobian, `MvnSpacecraft`'s element dispersions).
 """
 
 from __future__ import annotations
@@ -111,8 +113,6 @@ def value(param: str, y, mu: float, radius_km: float = 0.0):
     p = param.lower()
     if p in _SLOTS:
         return y[..., _SLOTS[p]]
-    if p.startswith("brouwer_mean_short_") or p in ("bdot_r", "bdot_t", "b_ltof"):
-        raise StateError(f"parameter {param!r} is not available in the port yet")
     r = y[..., 0:3]
     v = y[..., 3:6]
     rmag = vector_norm(r, dim=-1)
@@ -140,7 +140,17 @@ def value(param: str, y, mu: float, radius_km: float = 0.0):
         h = torch.linalg.cross(r, v, dim=-1)
         return h[..., {"hx": 0, "hy": 1, "hz": 2}[p]]
 
+    if p in ("bdot_r", "bdot_t", "b_ltof"):
+        from ..cosmic.bplane import bplane_from_rv
+
+        b_r, b_t, ltof, _ = bplane_from_rv(r, v, mu)
+        return {"bdot_r": b_r, "bdot_t": b_t, "b_ltof": ltof}[p]
+
     el = om.keplerian_from_cartesian(r, v, mu)
+    if p.startswith("brouwer_mean_short_"):
+        key = p[len("brouwer_mean_short_"):]
+        out = _brouwer_mean_short(el, mu, radius_km)[key]
+        return out * _R2D if key in ("inc", "raan", "aop", "ma") else out
     sma, e, inc, raan, aop, ta = (el[k] for k in ("sma", "ecc", "inc", "raan", "aop", "ta"))
     if p == "semi_parameter":
         return sma * (1 - e**2)
@@ -199,3 +209,108 @@ def value(param: str, y, mu: float, radius_km: float = 0.0):
 
 def default_precision(param: str) -> float:
     return StateParameter.DEFAULT_PRECISION.get(param.lower(), 1e-3)
+
+
+#: Earth J2 (GMAT/EGM96 value), copied from nyx_tpu/md/param.py:229: the
+#: BrouwerMeanShort parameters are defined for Earth orbits
+_EARTH_J2 = 1.082626925638815e-3
+
+
+def _brouwer_mean_short(el, mu, radius_km):
+    """First-order J2 osculating -> mean (short-periodics removed) elements,
+    Brouwer's artillery solution in the Lyddane-stabilized form (Schaub &
+    Junkins, first-order mapping appendix; GMAT's BrouwerMeanShort), the
+    reference's formulas term for term. Batched.
+
+    Returns dict(sma, ecc, inc, raan, aop, ma), angles in radians.
+    """
+    a, e, i = el["sma"], el["ecc"], el["inc"]
+    Om, w, f = el["raan"], el["aop"], el["ta"]
+    M = om.ecc_to_mean_anomaly(om.true_to_ecc_anomaly(f, e), e)
+    req = radius_km if radius_km else 6378.1363
+    sin, cos = torch.sin, torch.cos
+
+    gma2 = -_EARTH_J2 / 2.0 * (req / a) ** 2  # osc -> mean sign
+    eta = torch.sqrt(1.0 - e**2)
+    gma2p = gma2 / eta**4
+    th = cos(i)
+    th2 = th * th
+    crit = 1.0 - 5.0 * th2  # critical-inclination divisor
+    a_r = (1.0 + e * cos(f)) / eta**2
+    cf = cos(f)
+
+    am = a + a * gma2 * (
+        (3 * th2 - 1) * (a_r**3 - 1.0 / eta**3)
+        + 3 * (1 - th2) * a_r**3 * cos(2 * w + 2 * f)
+    )
+
+    de1 = gma2p / 8.0 * e * eta**2 * (1 - 11 * th2 - 40 * th2 * th2 / crit) * cos(2 * w)
+    de = de1 + eta**2 / 2.0 * (
+        gma2 * (
+            (3 * th2 - 1) / eta**6
+            * (e * eta + e / (1 + eta) + 3 * cf + 3 * e * cf**2 + e**2 * cf**3)
+            + 3 * (1 - th2) / eta**6
+            * (e + 3 * cf + 3 * e * cf**2 + e**2 * cf**3)
+            * cos(2 * w + 2 * f)
+        )
+        - gma2p * (1 - th2) * (3 * cos(2 * w + f) + cos(2 * w + 3 * f))
+    )
+
+    di = (
+        -e * de1 / (eta**2 * torch.tan(i))
+        + gma2p / 2.0 * th * torch.sqrt(1 - th2)
+        * (3 * cos(2 * w + 2 * f) + 3 * e * cos(2 * w + f) + e * cos(2 * w + 3 * f))
+    )
+
+    mwo = (
+        M + w + Om
+        + gma2p / 8.0 * eta**3 * (1 - 11 * th2 - 40 * th2 * th2 / crit)
+        - gma2p / 16.0 * (
+            2 + e**2 - 11 * (2 + 3 * e**2) * th2
+            - 40 * (2 + 5 * e**2) * th2 * th2 / crit
+            - 400 * e**2 * th2**3 / crit**2
+        )
+        + gma2p / 4.0 * (
+            -6 * crit * (f - M + e * sin(f))
+            + (3 - 5 * th2) * (
+                3 * sin(2 * w + 2 * f) + 3 * e * sin(2 * w + f) + e * sin(2 * w + 3 * f)
+            )
+        )
+        - gma2p / 8.0 * e**2 * th * (11 + 80 * th2 / crit + 200 * th2 * th2 / crit**2)
+        - gma2p / 2.0 * th * (
+            6 * (f - M + e * sin(f))
+            - 3 * sin(2 * w + 2 * f) - 3 * e * sin(2 * w + f) - e * sin(2 * w + 3 * f)
+        )
+    )
+
+    edm = (
+        gma2p / 8.0 * e * eta**3 * (1 - 11 * th2 - 40 * th2 * th2 / crit)
+        - gma2p / 4.0 * eta**3 * (
+            2 * (3 * th2 - 1) * ((a_r * eta) ** 2 + a_r + 1) * sin(f)
+            + 3 * (1 - th2) * (
+                (-((a_r * eta) ** 2) - a_r + 1) * sin(2 * w + f)
+                + ((a_r * eta) ** 2 + a_r + 1.0 / 3.0) * sin(2 * w + 3 * f)
+            )
+        )
+    )
+
+    dom = (
+        -gma2p / 8.0 * e**2 * th * (11 + 80 * th2 / crit + 200 * th2 * th2 / crit**2)
+        - gma2p / 2.0 * th * (
+            6 * (f - M + e * sin(f))
+            - 3 * sin(2 * w + 2 * f) - 3 * e * sin(2 * w + f) - e * sin(2 * w + 3 * f)
+        )
+    )
+
+    # Lyddane combinations avoid small-e / small-i indeterminacy
+    d1 = (e + de) * sin(M) + edm * cos(M)
+    d2 = (e + de) * cos(M) - edm * sin(M)
+    m_mean = torch.remainder(torch.atan2(d1, d2), _TWO_PI)
+    e_mean = torch.sqrt(d1**2 + d2**2)
+    si2 = sin(i / 2)
+    d3 = (si2 + cos(i / 2) * di / 2) * sin(Om) + si2 * dom * cos(Om)
+    d4 = (si2 + cos(i / 2) * di / 2) * cos(Om) - si2 * dom * sin(Om)
+    om_mean = torch.remainder(torch.atan2(d3, d4), _TWO_PI)
+    i_mean = 2 * torch.arcsin(torch.sqrt(d3**2 + d4**2))
+    w_mean = torch.remainder(mwo - m_mean - om_mean, _TWO_PI)
+    return dict(sma=am, ecc=e_mean, inc=i_mean, raan=om_mean, aop=w_mean, ma=m_mean)

@@ -11,8 +11,15 @@ on the trajectory) build on it. A lane that turns to NaN raises
 `PropagationNaNError`, an `ArithmeticError` as the reference's. With
 `IntegratorOptions.integration_frame` set, the state moves into that
 frame once, up front (relabelled where the centres match, else
-translated through the almanac), and results stay in it. A state-carried
-STM and the context override are not ported yet.
+translated through the almanac), and results stay in it.
+
+A spacecraft built `with_stm()` propagates its 9x9 STM beside the state,
+packed in the reference's order (instance.py:78-93): the 9 state slots,
+the 81 of Phi row-major, then the mode column when guided, so a guided
+STM state is [1, 91]. The EOM is made once per (with_stm, thruster) and
+kept, as the reference keeps it (:70-76). `ctx_override`, when set,
+replaces the EOM context built from the almanac (ephemeris sensitivity
+studies).
 """
 
 from __future__ import annotations
@@ -52,19 +59,33 @@ class PropInstance:
         #: the integrator's PropResult of the latest propagation (steps,
         #: iterations), or None before the first
         self.last_result = None
+        #: an EomContext used instead of the one built from the almanac
+        self.ctx_override = None
+        self._eom_cache = {}
 
     @property
     def dynamics(self):
         return self.prop.dynamics
 
+    def _eom(self, with_stm: bool):
+        key = (with_stm, self.state.thruster)
+        if key not in self._eom_cache:
+            self._eom_cache[key] = self.dynamics.make_eom(with_stm, thruster=self.state.thruster)
+        return self._eom_cache[key]
+
     def _pack(self) -> torch.Tensor:
-        y = self.state.to_vector()
+        sc = self.state
+        y = sc.to_vector()
+        if sc.stm is not None:
+            y = np.concatenate([y, np.asarray(sc.stm, dtype=np.float64).ravel()])
         if self.dynamics.has_guidance:
-            y = np.concatenate([y, [float(self.state.mode)]])
+            y = np.concatenate([y, [float(sc.mode)]])
         return torch.as_tensor(y, dtype=torch.float64, device=self.device)[None, :]
 
     def _unpack(self, epoch, y_row: np.ndarray) -> Spacecraft:
         sc = self.state.set_vector(epoch, y_row[0:9])
+        if self.state.stm is not None:
+            sc.stm = y_row[9:90].reshape(9, 9).copy()
         if self.dynamics.has_guidance:
             sc.mode = int(round(float(y_row[-1])))
         return sc
@@ -72,12 +93,13 @@ class PropInstance:
     def _run(self, duration_s: float, n_capture: int = 0):
         dyn = self.dynamics
         sc = self.state
-        ctx = dyn.build_context(sc.epoch, duration_s, self.almanac, device=self.device)
+        ctx = self.ctx_override or dyn.build_context(sc.epoch, duration_s, self.almanac,
+                                                     device=self.device)
         y0 = self._pack()
         sc_params = dict(dry_mass_kg=sc.dry_mass_kg, srp_area_m2=sc.srp_area_m2,
                          drag_area_m2=sc.drag_area_m2)
         res = integrator.propagate(
-            dyn.make_eom(thruster=sc.thruster), y0, duration_s, self.prop.opts, self.prop.method,
+            self._eom(sc.stm is not None), y0, duration_s, self.prop.opts, self.prop.method,
             finally_fn=dyn.make_finally(), eom_args=(ctx, sc_params), n_capture=n_capture,
         )
         self.last_result = res

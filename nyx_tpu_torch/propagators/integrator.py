@@ -9,10 +9,12 @@ by 0.9 (tol/err)^(1/(order-1)); the last step is clamped to land exactly on
 the stop time and is accepted or rejected like any other.
 
 The reference's `lax.while_loop` becomes a host loop over masked steps. It
-asks the device whether any lane is still RUNNING only once every
-CHECK_EVERY steps: the steps in between are exact no-ops for finished
-lanes, so the result equals a check after every step (the contract of the
-reference's fixed-trip `loop_mode="scan"`), with one host sync per chunk.
+asks the device whether any lane is still RUNNING after 1, 2, 4 and 8
+steps, then once every CHECK_EVERY steps: the steps in between are exact
+no-ops for finished lanes, so the result equals a check after every step
+(the contract of the reference's fixed-trip `loop_mode="scan"`), with one
+host sync per chunk, and a short propagation (a targeter's segment) runs
+no more than twice its steps.
 Fixed-step integration (`options.fixed_step`, or a fixed-only method such
 as RK4Fixed) takes zero error, accepts every step and keeps h, the last
 step clamped like any other. `_rk_stages` also serves the OD filter's one
@@ -35,6 +37,8 @@ DONE = 1
 FAILED_NAN = 2
 # Steps between two host checks for a lane still RUNNING.
 CHECK_EVERY = 16
+# Extra checks before the first CHECK_EVERY steps.
+_EARLY_CHECKS = (1, 2, 4, 8)
 
 
 class PropResult(NamedTuple):
@@ -51,7 +55,8 @@ class PropResult(NamedTuple):
     traj_y: Optional[torch.Tensor] = None
     traj_len: Optional[torch.Tensor] = None
     # iterations of the host loop (attempted steps of the slowest lane,
-    # rounded up to CHECK_EVERY)
+    # rounded up to a power of two below CHECK_EVERY, else to a multiple
+    # of it)
     iterations: int = 0
 
 
@@ -148,7 +153,7 @@ def propagate(
 
     n_iter = 0
     for it in range(options.max_iterations):
-        if it % CHECK_EVERY == 0 and not bool((status == RUNNING).any()):
+        if (it % CHECK_EVERY == 0 or it in _EARLY_CHECKS) and not bool((status == RUNNING).any()):
             break
         n_iter = it + 1
         running = status == RUNNING

@@ -44,6 +44,10 @@ class Propagator:
         """Method by name ('rk89', 'dp78', 'dp45', 'ck45', 'rk4', 'verner56')."""
         return cls(dynamics, _METHODS[method.lower()], opts)
 
+    def with_guidance(self, law) -> "Propagator":
+        """A copy whose dynamics run the guidance law `law`."""
+        return Propagator(self.dynamics.with_guidance_law(law), self.method, self.opts)
+
     def with_state(self, state, almanac=None, *, device="cuda"):
         """A PropInstance propagating `state` on `device` (the card unless
         the caller asks for another)."""

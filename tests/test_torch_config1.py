@@ -259,7 +259,10 @@ PORTED_PARAMS = [
 def test_param_values_match_reference(kind):
     """Every ported StateParameter on 200 random states: 1e-12 relative,
     angles modulo 360. `hyperbolic_anomaly` is held on hyperbolic states,
-    where it is defined; the Brouwer and B-plane parameters raise."""
+    where it is defined; Brouwer's mean sma and B.R at 1e-10 of their
+    largest value, NaN where undefined (Brouwer on a hyperbola, the B-plane
+    on an ellipse; tests/test_torch_mission_design.py holds the rest of
+    them); an unknown name raises."""
     y = _random_states(kind, 200, {"leo": 1, "geo": 2, "hyperbolic": 3}[kind])
     names = PORTED_PARAMS + (["hyperbolic_anomaly"] if kind == "hyperbolic" else [])
     worst = {}
@@ -269,9 +272,14 @@ def test_param_values_match_reference(kind):
         worst[name] = _close(port, ref, angle=name in rparam.StateParameter.ANGLES_DEG)
     print(f"{kind}: worst {max(worst, key=worst.get)} {max(worst.values()):.3e}")
     assert max(worst.values()) <= F64, {k: v for k, v in worst.items() if v > F64}
-    for name in ("brouwer_mean_short_sma", "bdot_r", "b_ltof", "no_such_parameter"):
-        with pytest.raises(StateError):
-            param.value(name, _t(y), MU)
+    for name in ("brouwer_mean_short_sma", "bdot_r"):
+        ref = np.asarray(rparam.value(name, jnp.asarray(y), MU, 6378.1363))
+        port = param.value(name, _t(y), MU, 6378.1363).numpy()
+        assert np.array_equal(np.isnan(port), np.isnan(ref)), name
+        ok = ~np.isnan(ref)
+        assert not ok.any() or np.abs(port[ok] - ref[ok]).max() <= 1e-10 * np.abs(ref[ok]).max(), name
+    with pytest.raises(StateError):
+        param.value("no_such_parameter", _t(y), MU)
 
 
 def test_orbit_and_spacecraft_accessors_match_reference():

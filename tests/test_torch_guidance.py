@@ -592,8 +592,8 @@ def test_guidance_configuration_errors():
         Ruggiero.simple([Objective.within_tolerance(StateParameter.TA, 10.0, 1.0)], sc)
     law = Ruggiero.from_ctx_thresholds(_objectives(P, ("sma",)), sc)
     dyn = SpacecraftDynamics.from_guidance_law(OrbitalDynamics.two_body(), law)
-    with pytest.raises(ConfigError):
-        dyn.make_eom(with_stm=True, thruster=sc.thruster)
+    with pytest.raises(ConfigError):  # guided, with the STM or without, needs the thruster
+        dyn.make_eom(with_stm=True)
     with pytest.raises(ConfigError):
         dyn.make_eom()
     y = _t([np.concatenate([sc.to_vector(), [1.0]])])
