@@ -22,7 +22,7 @@ raises and exits non-zero:
    bound, the lunar field at B = 1 and 288, and the twin and the parent's
    kernel at 21x21;
 4. run the main path, after a 120 s warm-up arc, and count kernel launches;
-5. rerun 64 of its lanes over the day's first 2 h through the kernel and
+5. rerun 64 of its lanes over the day's first hour through the kernel and
    with the gravity twin forced, and compare finals;
 6. the same ensemble with 70x70 JGM3 split gravity over a quarter hour,
    through the kernel, and its 64-lane twin rerun;
@@ -71,7 +71,7 @@ raises and exits non-zero:
    04_lro_od.py:57-238): the 80x80 Kaula-rule lunar field at split
    precision (the kernel streams its table), an LRO-like 50 x 110 km polar
    orbit in MOON_J2000, RK89 at 1e-10 with a 60 s max step, over a cut
-   depth of 2 h of its 24 h (one revolution): the truth by
+   depth of 1 h of its 24 h (half a revolution): the truth by
    `for_duration_with_traj`, timed, with one EOM call profiled by module;
    six polar IAU_MOON stations, two-way, simulated by `TrackingArcSim`; the
    segmented EKF (SNC, 3-sigma gate, stm_jvp_degree 8) over the first
@@ -94,7 +94,7 @@ raises and exits non-zero:
    example's Encke mode (ABM, dt 600 s, 256 nodes) on the same draws, its
    finals within 2e-3 km of (b)'s and its sigmas within 1e-3; (e) Config
    2's Encke mode at the bench's defaults (bench.py:164-171: fixed step,
-   ABM, automatic dt) at B = 10,000 over phase 5's 2 h, timed after a
+   ABM, automatic dt) at B = 10,000 over phase 5's hour, timed after a
    first call that builds its reference: the float32 perturbation's field
    through the kernel (launches counted, no twin primal call on CUDA), the
    first 64 lanes within 2e-3 km of phase 5's 64-lane full-state kernel
@@ -104,7 +104,8 @@ raises and exits non-zero:
    later by FD and by dual, the VNC sma and ecc pair, a position target)
    in two-body, then under 21x21 JGM3 split at 1e-10 through the kernel
    (launches counted, no twin primal call on CUDA), and the sma target by
-   FD and by dual again with the twin forced (the same Newton iterations,
+   FD again with the twin forced, and the dual's first Newton iteration
+   through the kernel and the twin (the same Newton iterations,
    corrections within 1e-12 km/s);
    (b) finite-burn targeting (`thrust_dir`, `thrust_dir_rate`) and
    `convert_impulsive_mnvr`, each maneuver flown again and held to the
@@ -112,8 +113,26 @@ raises and exits non-zero:
    Earth -> Mars porkchop over the 2020 window at one day (43,200 cells)
    and test_lambert.py's 12 x 12 grid, each against the CPU; (e) Davis'
    B-plane, test_sequence.py's sequence, and the state-carried STM over
-   one orbit under the split field against central differences; printed
-   as "Mission design phase";
+   half an orbit under the split field against central differences;
+   printed as "Mission design phase";
+6i. the tracking side of OD, printed as "Tracking phase": (a) ex05
+   (examples/05_caps_interlink_od.py:62-233), the CAPS crosslink OD: the
+   NRHO transmitter and the 110 km polar LLO receiver with Earth and Sun
+   point masses over the OD's 2 h (a depth cut of the example's 12 h
+   truths), link-budget noises, one manual strand, the randomized start,
+   the segmented EKF with the 3-sigma gate, timed, its residual-versus-
+   reference run and three parquets, held to the port's CPU counts and
+   error and to the reference's 167.76 m; no field, so no kernel launch;
+   (b) ex06 (examples/06_lunar_od.py:90-290), Earth-tracked lunar OD over
+   the first hour of its 2 days: the 50x50 lunar field at split precision
+   through the kernel with Earth, Sun and Jupiter point masses and SRP,
+   three DSN stations saved to YAML, read back and given centre-offset
+   tables to the Moon, a tracking YAML, the zero-noise cross-body CKF over
+   the first half hour (range prefits under 1e-4 km), the segmented EKF (SNC, 3-sigma gate,
+   stm_jvp_degree 8, segment_rows 8) from a 500 m / 5 mm/s dispersed
+   start, timed, with its kernel launches (no twin primal call on CUDA),
+   its final error under half the initial one; and the truth's first
+   600 s through the kernel and the twin (within 1e-9 km);
 7. print the command time and the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
@@ -155,10 +174,11 @@ KERNEL_REL_TOL = 2e-5
 # also the OD leg's bound between its kernel and twin runs, row by row.
 TWIN_FINAL_TOL_KM = 1e-3
 # Config 2's twin rerun holds the kernel to the twin over this prefix of the
-# day (6 h until Config 5's phase needed the time), and phase 6's 70x70
-# ensemble runs over its first quarter hour (one hour until Config 5's phase
-# needed the time, half an hour until Config 3's did).
-TWIN_PREFIX_S = 2 * 3600.0
+# day (6 h until Config 5's phase needed the time, 2 h until the tracking
+# phase did), and phase 6's 70x70 ensemble runs over its first quarter hour
+# (one hour until Config 5's phase needed the time, half an hour until
+# Config 3's did).
+TWIN_PREFIX_S = 3600.0
 SECONDS_70X70 = 900.0
 # The OD legs' warm-up arc, whose rows the twin and f64 reruns repeat (2 h
 # until Config 3's phase needed the time), and the flagship leg's timed arc,
@@ -224,12 +244,13 @@ B_EX04_STM = 9 * 32
 # The bench's OD guard: final position error against the truth (bench.py:376).
 OD_GUARD_KM = 0.1
 # Config 5 (examples/04_lro_od.py): the lunar GM of the field and the orbit's
-# frame, the example's 24 h arc cut to 2 h (one revolution of the 1.93 h
-# orbit; 6 h took phase 6f 225 s, 4 h 156 s and 3 h 181 s on NVIDIA H100 80GB
-# HBM3 cards at 700 W; 4 h until Config 3's phase needed the time), the range
-# postfit RMS guard, km, and the twin witness's prefix.
+# frame, the example's 24 h arc cut to 1 h (half a revolution of the 1.93 h
+# orbit; 6 h took phase 6f 225 s, 4 h 156 s, 3 h 181 s and 2 h 82.5-92.5 s on
+# NVIDIA H100 80GB HBM3 cards at 700 W; 4 h until Config 3's phase needed the
+# time, 2 h until the tracking phase did), the range postfit RMS guard, km,
+# and the twin witness's prefix.
 EX04_MU = 4902.800066
-EX04_HOURS = 2.0
+EX04_HOURS = 1.0
 EX04_POSTFIT_RMS_KM = 5e-3
 EX04_TWIN_PREFIX_S = 600.0
 # Config 3 (examples/02_jwst_covar_monte_carlo.py): its 5,000 lanes over its
@@ -279,6 +300,37 @@ MD_C3 = (8.0, 25.0)
 MD_STM_REL, MD_STM_BIG = 1e-5, 0.1
 MD_CD_KM, MD_CD_KM_S = 1e-2, 1e-5
 DAVIS_DV = (-0.25386251697606466, -0.18774460089778605, 0.046145009839345504)
+# ex05 (examples/05_caps_interlink_od.py): both truths over the OD's 2 h, not
+# the example's 12 h (its NYX_EX05_TX_HOURS knob; the manual strand's first
+# 75 samples, the OD's rows, are the same either way), and the OD arc. The
+# port's CPU run (tests/test_torch_tracking_od.py holds it to these and to
+# the reference): rows, acceptances and final position error, m; the card
+# must give the same counts and an error within EX05_CPU_TOL_M of it; and the
+# reference's own artifact (examples/artifacts/ex05_cpu.json, 167.76 m) with
+# the card's bound from it.
+EX05_HOURS = 2.0
+EX05_OD_S = 7200.0
+EX05_CPU_ROWS = 75
+EX05_CPU_ACCEPTED = 75
+EX05_CPU_ERROR_M = 167.76494370031148
+EX05_CPU_TOL_M = 1.0
+EX05_REFERENCE_ERROR_M = 167.76
+EX05_REFERENCE_TOL_M = 5.0
+# ex06 (examples/06_lunar_od.py): its 50x50 field at split precision, over
+# the first hour of its 2 days; the zero-noise cross-body CKF's span (the
+# arc's first half hour) and its range prefit bound, km (tests/test_od.py:
+# 1940-1945); and the twin witness's prefix.
+EX06_DEGREE = 50
+EX06_HOURS = 1.0
+EX06_CKF_S = 1800.0
+EX06_PREFIT_KM = 1e-4
+EX06_TWIN_PREFIX_S = 600.0
+# ex06's EKF runs segments of M <= segment_rows = 8 rows; its stage 2 folds
+# the 9 forward-mode passes into the batch, so the kernel sees B = 9 M <= 72
+# lanes, about the 150 km orbit's perilune and apolune radii.
+EX06_SEGMENT_ROWS = 8
+B_EX06_STM = 9 * EX06_SEGMENT_ROWS
+EX06_RADII_KM = (1_883.4, 1_891.4)
 # f32 against f64 filter algebra (tests/test_od.py:1782-1792): positions
 # (km) and sigmas (relative).
 OD_F32_POS_KM = 2e-3
@@ -518,6 +570,228 @@ def ex02_scene(*, device="cuda"):
                            mvn=MvnSpacecraft.from_covariance(sc, est0.covar))
 
 
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ex05_flow(tx_hours: float = EX05_HOURS, *, device="cuda", out_dir=None):
+    """examples/05_caps_interlink_od.py:62-233 through the port's own names,
+    on `device`: the NRHO transmitter (given in EME2000, integrated in
+    MOON_J2000) and the 110 km polar LLO receiver, Moon-centred with Earth
+    and Sun point masses, RK89 at 1e-9 with a 30 s step cap, both
+    propagated over `tx_hours` (the example's NYX_EX05_TX_HOURS, 12 h by
+    default; the OD needs the first 2 h); the link-budget noises (an SA-45
+    CSAC clock, 10 s integration); the crosslink simulated over one manual
+    strand (60 s, seed 0); the randomized RIC estimate (1 km, 1 m/s, draw
+    from `np.random.default_rng(0)`, covariance x 2.5); the process device
+    with 3x white noise; the segmented EKF with the 3-sigma gate over the
+    first 2 h, its residual-versus-reference run, and both parquet exports
+    into `out_dir` (when given). Returns a namespace of the results and
+    each stage's wall."""
+    from dataclasses import replace
+
+    from nyx_tpu_torch import Epoch, Frames, Orbit, Spacecraft
+    from nyx_tpu_torch.constants import NAIF
+    from nyx_tpu_torch.cosmic.orbit import ric_dcm
+    from nyx_tpu_torch.dynamics import OrbitalDynamics, PointMasses, SpacecraftDynamics
+    from nyx_tpu_torch.ephem import Almanac
+    from nyx_tpu_torch.od import (
+        InterlinkTxSpacecraft, MeasurementType, ScanKalmanOD, SpacecraftUncertainty, StochasticNoise,
+        TrackingArcSim, TrkConfig, WhiteNoise,
+    )
+    from nyx_tpu_torch.od.noise import CN0, SN0, CarrierFreq, ChipRate
+    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
+
+    walls = {}
+
+    def timed(name, fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    alm = Almanac()
+    moon = Frames.MOON_J2000
+    epoch = Epoch.from_gregorian_tai(2021, 5, 29, 19, 51, 16.852)
+    nrho = Orbit.cartesian(166_473.631_302_239_7, -274_715.487_253_382_7, -211_233.210_176_686_7,
+                           0.933_451_604_520_018_4, 0.436_775_046_841_900_9, -0.082_211_021_250_348_95,
+                           epoch, Frames.EME2000)
+    dyn = SpacecraftDynamics.new(OrbitalDynamics.from_models([PointMasses((NAIF.EARTH, NAIF.SUN))], moon))
+    setup = Propagator.rk89(dyn, replace(IntegratorOptions.with_adaptive_step(0.1, 30.0, 1e-9),
+                                         integration_frame=moon))
+    prop_time = tx_hours * 3600.0
+    tx_inst = setup.with_state(Spacecraft.from_orbit(nrho), alm, device=device)
+    _, tx_traj = timed("tx truth", lambda: tx_inst.for_duration_with_traj(prop_time, n_capture=16384))
+    llo_orbit = Orbit.keplerian(1737.4 + 110.0, 1e-4, 90.0, 0.0, 0.0, 0.0, epoch, moon)
+    llo_sc = Spacecraft.from_orbit(llo_orbit)
+    llo_inst = setup.with_state(llo_sc, alm, device=device)
+    _, llo_traj = timed("llo truth", lambda: llo_inst.for_duration_with_traj(prop_time, n_capture=16384))
+    iterations = tx_inst.last_result.iterations + llo_inst.last_result.iterations
+
+    allan = 1e-11  # the SA-45 CSAC
+    noises = {
+        MeasurementType.RANGE_KM: StochasticNoise.from_hardware_range_km(
+            allan, 10.0, ChipRate.StandardT4B, SN0.Average),
+        MeasurementType.DOPPLER_KM_S: StochasticNoise.from_hardware_doppler_km_s(
+            allan, 10.0, CarrierFreq.SBand, CN0.Average),
+    }
+    link = InterlinkTxSpacecraft(tx_traj, name="NRHO Tx SC", occulting_radius_km=1737.4)
+    link.stochastic_noises = noises
+    cfg = TrkConfig(sampling_s=60.0, strands=[(epoch, epoch + prop_time)])
+    arc = timed("simulation", lambda: TrackingArcSim.with_seed(
+        [link], llo_traj, {link.name: cfg}, seed=0, device=device).generate_measurements())
+
+    unc = SpacecraftUncertainty(nominal=llo_sc, frame="ric", x_km=1.0, y_km=1.0, z_km=1.0,
+                                vx_km_s=1e-3, vy_km_s=1e-3, vz_km_s=1e-3)
+    est0, dispersed = unc.to_estimate_randomized(np.random.default_rng(0))
+    est0 = replace(est0, nominal=dispersed, covar=est0.covar * 2.5)
+    proc = InterlinkTxSpacecraft(tx_traj, name="NRHO Tx SC", occulting_radius_km=1737.4)
+    proc.stochastic_noises = {t: StochasticNoise(WhiteNoise(n.white_noise.sigma * 3.0))
+                              for t, n in noises.items()}
+    od = ScanKalmanOD(setup, [proc], types=(MeasurementType.RANGE_KM, MeasurementType.DOPPLER_KM_S),
+                      variant="ekf", resid_rejection_sigmas=3.0, almanac=alm, device=device)
+    arc_2h = arc.filter_by_offset(0.0, EX05_OD_S)
+    sol = timed("od", lambda: od.process_arc(est0, arc_2h))
+    od_walls = dict(od.stage_walls_s)
+    rvr = timed("resid vs ref", lambda: od.process_arc(est0, arc_2h.resid_vs_ref_check()))
+
+    truth = llo_traj.at(Epoch.from_tai_seconds_j2000(float(sol.epochs_tai_s[-1])))
+    r_t, v_t = np.asarray(truth.orbit.r_km), np.asarray(truth.orbit.v_km_s)
+    err = sol.final_state()[:3] - r_t
+    dcm = ric_dcm(torch.tensor(r_t), torch.tensor(v_t)).numpy()
+    paths = []
+    if out_dir is not None:
+        paths = [arc.to_parquet(Path(out_dir) / "05_nrho_interlink_msr.parquet"),
+                 sol.to_parquet(Path(out_dir) / "05_caps_interlink_od_sol.parquet"),
+                 rvr.to_parquet(Path(out_dir) / "05_caps_interlink_resid_v_ref.parquet")]
+    return SimpleNamespace(
+        tx_traj=tx_traj, llo_traj=llo_traj, arc=arc, arc_2h=arc_2h, est0=est0, dispersed=dispersed, sol=sol,
+        rvr=rvr, noises=noises, od=od, walls=walls, od_walls=od_walls, iterations=iterations, paths=paths,
+        init_err_m=1e3 * float(np.linalg.norm(dispersed.orbit.r_km - llo_orbit.r_km)),
+        err_ric_m=1e3 * (dcm @ err), err_m=1e3 * float(np.linalg.norm(err)),
+        prop_err_m=1e3 * float(np.linalg.norm(rvr.final_state()[:3] - r_t)))
+
+
+def ex06_moon_field(n_max: int = EX06_DEGREE, seed: int = 7):
+    """examples/06_lunar_od.py:62-83 as numpy, into the port's
+    GravityFieldData: the lunar J2 and C22, and from degree 3 fully
+    normalized C/S of Kaula-rule magnitude (3.5e-4 / n^2 times a standard
+    normal from `np.random.default_rng(seed)`, C before S at each order),
+    GM 4,902.800066 km^3/s^2, radius 1,737.4 km, in IAU_MOON. (Config 5's
+    `kaula_moon_field` draws from degree 2 and sets only C20.)"""
+    from nyx_tpu_torch import Frames
+    from nyx_tpu_torch.io.gravity import GravityFieldData
+
+    rng = np.random.default_rng(seed)
+    c = np.zeros((n_max + 1, n_max + 1))
+    s = np.zeros((n_max + 1, n_max + 1))
+    c[2, 0] = -9.088e-5
+    c[2, 2] = 3.467e-5
+    for n in range(3, n_max + 1):
+        k = 3.5e-4 / n**2
+        for m in range(0, n + 1):
+            c[n, m] = rng.normal() * k
+            if m > 0:
+                s[n, m] = rng.normal() * k
+    c[0, 0] = 1.0
+    return GravityFieldData(c_nm=c, s_nm=s, mu_km3_s2=EX04_MU, radius_km=1737.4, frame=Frames.IAU_MOON)
+
+
+def ex06_scene(stor, precision: str = "split", *, yaml_dir, device="cuda"):
+    """The scene of examples/06_lunar_od.py:90-205 through the port's own
+    names, on the field `stor` (`ex06_moon_field`): the 150 km lunar
+    orbiter (e 0.00212, i 33.6 deg) in MOON_J2000, 1,018 kg dry and 900 kg
+    of propellant, 10.53 m^2 of SRP area at Cr 0.96; the field with Earth,
+    Sun and Jupiter-barycentre point masses and SRP with the Moon's shadow,
+    RK89 at 1e-10 with a 60 s step cap (the example's accelerator
+    options); DSS-65, DSS-34 and DSS-13 at a 5 deg mask, one-way range and
+    Doppler with 2 m and 3 mm/s white noise, saved to
+    `yaml_dir`/dsn-network.yaml and read back with `load_named`; the
+    tracking file `yaml_dir`/tracking-cfg.yaml, 60 s sampling, eager
+    hand-off, min_samples 10, read back with `load_trk_configs` (the
+    example reads both from the reference's fixtures, which are not in the
+    repository: these are the port's stated choice); the RIC uncertainty
+    (500 m, 5 mm/s) with one randomized draw from
+    `np.random.default_rng(123)`; the SNC of 1e-14 km/s over 3,600 s,
+    disabled beyond 600 s gaps; and the filter factory (`od(stations,
+    backend, variant, stm_jvp_degree=8)`: the segmented EKF with the
+    3-sigma gate and segment_rows 8, or the CKF without SNC or gate).
+    `stations(start, end)` gives the YAML's stations each
+    `with_target_frame(almanac, NAIF.MOON, start, end)`. Returns a namespace
+    of them."""
+    from dataclasses import replace
+
+    from nyx_tpu_torch import Epoch, Frames, Orbit, Spacecraft
+    from nyx_tpu_torch.constants import NAIF
+    from nyx_tpu_torch.dynamics import (
+        Harmonics, OrbitalDynamics, PointMasses, SolarPressure, SpacecraftDynamics,
+    )
+    from nyx_tpu_torch.ephem import Almanac
+    from nyx_tpu_torch.io.config import load_trk_configs
+    from nyx_tpu_torch.od import (
+        GroundStation, MeasurementType, ProcessNoise, ScanKalmanOD, SpacecraftUncertainty, StochasticNoise,
+        WhiteNoise,
+    )
+    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
+
+    alm = Almanac()
+    moon = Frames.MOON_J2000
+    epoch = Epoch.from_gregorian_utc(2024, 2, 29, 12, 0, 0.0)
+    orbit = Orbit.keplerian(1737.4 + 150.0, 0.00212, 33.6, 45.0, 45.0, 0.0, epoch, moon)
+    orbiter = Spacecraft.new(orbit, 1018.0, 900.0, 3.9 * 2.7, 0.0, 0.96, 2.2)
+
+    def propagator(backend):
+        dyn = SpacecraftDynamics(
+            OrbitalDynamics.from_models(
+                [Harmonics.from_stor(stor, precision=precision, backend=backend),
+                 PointMasses((NAIF.EARTH, NAIF.SUN, NAIF.JUPITER_BARYCENTER))], moon),
+            (SolarPressure.default(NAIF.MOON),))
+        return Propagator.rk89(dyn, IntegratorOptions(tolerance=1e-10, max_step_s=60.0))
+
+    yaml_dir = Path(yaml_dir)
+    dsn = [GroundStation.dss65_madrid(5.0), GroundStation.dss34_canberra(5.0),
+           GroundStation.dss13_goldstone(5.0)]
+    for gs in dsn:
+        gs.stochastic_noises = {MeasurementType.RANGE_KM: StochasticNoise(WhiteNoise(2.0e-3)),
+                                MeasurementType.DOPPLER_KM_S: StochasticNoise(WhiteNoise(3.0e-6))}
+    from nyx_tpu_torch.io.config import save_ground_stations
+
+    save_ground_stations(dsn, yaml_dir / "dsn-network.yaml")
+    trk = {gs.name: {"sampling": "1 min", "scheduler": {"handoff": "Eager", "cadence": "Continuous",
+                                                          "min_samples": 10}} for gs in dsn}
+    with open(yaml_dir / "tracking-cfg.yaml", "w") as f:
+        import yaml
+
+        yaml.safe_dump(trk, f, sort_keys=False)
+    devices = GroundStation.load_named(yaml_dir / "dsn-network.yaml")
+    configs = load_trk_configs(yaml_dir / "tracking-cfg.yaml")
+
+    def stations(start, end):
+        return [gs.with_target_frame(alm, NAIF.MOON, start, end) for gs in devices.values()]
+
+    unc = SpacecraftUncertainty(nominal=orbiter, frame="ric", x_km=0.5, y_km=0.5, z_km=0.5,
+                                vx_km_s=5e-3, vy_km_s=5e-3, vz_km_s=5e-3)
+    est0, dispersed = unc.to_estimate_randomized(np.random.default_rng(123))
+    est0 = replace(est0, nominal=dispersed)
+    snc = ProcessNoise.from_velocity_km_s([1e-14] * 3, 3600.0, disable_time_s=600.0)
+    types = (MeasurementType.RANGE_KM, MeasurementType.DOPPLER_KM_S)
+
+    def od(st, backend="auto", variant="ekf", stm_jvp_degree=8):
+        if variant == "ckf":
+            return ScanKalmanOD(propagator(backend), st, types=types, variant="ckf", almanac=alm,
+                                stm_jvp_degree=stm_jvp_degree, device=device)
+        return ScanKalmanOD(propagator(backend), st, types=types, variant="ekf", process_noise=(snc,),
+                            resid_rejection_sigmas=3.0, almanac=alm, stm_jvp_degree=stm_jvp_degree,
+                            segment_rows=EX06_SEGMENT_ROWS, device=device)
+
+    return SimpleNamespace(epoch=epoch, orbit=orbit, orbiter=orbiter, propagator=propagator, almanac=alm,
+                           devices=devices, configs=configs, stations=stations, unc=unc, est0=est0,
+                           dispersed=dispersed, snc=snc, od=od)
+
+
 def _parent_gravity(root: Path):
     """The `gravity_pines` module of the port in the checkout at `root`,
     imported under another package name beside this one: its own wrapper,
@@ -543,7 +817,10 @@ def phase_kernel_vs_twin(gp, fields, parent):
              ("8x8", 0, ((B_SK, B_SK_TWIN), GEO_RADII_KM)),
              # phase 6f's field at lunar radii: the truth's and stage 1's single
              # lane, stage 2's [M, 90] STM batch and the main path's B
-             ("moon80x80", 3, ((1, B_EX04_STM, B_MAIN), LUNAR_RADII_KM))]
+             ("moon80x80", 3, ((1, B_EX04_STM, B_MAIN), LUNAR_RADII_KM)),
+             # phase 6i's ex06 field at its orbit's radii, at the q_lo its split
+             # field passes: the truth's single lane and stage 2's 9 M lanes
+             ("moon50x50", 0, ((1, 9, B_EX06_STM), EX06_RADII_KM))]
     for name, q_lo, (batches, radii) in cases:
         h = fields[name]
         tab = h.packed_table(0, torch.float32, "cuda")
@@ -1550,7 +1827,9 @@ def phase_mission_design(gp, stor21, device="cuda"):
         half an orbit later by FD and by dual, the VNC pair, the position
         target; in two-body (RK89 at 1e-12), then under the 21x21 JGM3
         split field at 1e-10 through the kernel (its launches counted from
-        0, no twin primal call on CUDA), then again with backend="torch";
+        0, no twin primal call on CUDA), then the FD solve again with
+        backend="torch", and the dual's first Newton iteration through
+        both;
     (b) finite-burn targeting, `thrust_dir` and `thrust_dir_rate`
         (:184-262), each maneuver flown again and held to the rocket
         equation, and `convert_impulsive_mnvr` (:263-303) against the
@@ -1562,9 +1841,10 @@ def phase_mission_design(gp, stor21, device="cuda"):
         test_lambert.py:118-140's 12 x 12 grid, each against a CPU run of
         `porkchop_grid` on the same inputs;
     (e) the B-plane of Davis' case (test_targeting.py:24-52), the sequence
-        of test_sequence.py:26-48, and the state-carried STM over one
-        orbit of (a)'s LEO under the split field against central
-        differences of the same propagation.
+        of test_sequence.py:26-48, and the state-carried STM over half an
+        orbit of (a)'s LEO (one orbit until the tracking phase needed the
+        time) under the split field against central differences of the
+        same propagation.
 
     Returns the summary's numbers."""
     from nyx_tpu_torch import Epoch, Frames, Orbit, Spacecraft
@@ -1608,16 +1888,30 @@ def phase_mission_design(gp, stor21, device="cuda"):
     split_wall = time.perf_counter() - t0
     launches, twin_calls = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
     atwin = _md_targeter_scenes(split_prop("torch"), leo, epoch, device, sync, "21x21 split, twin",
-                                ("sma_fd", "sma_dual"))
+                                ("sma_fd",))
     d_twin = max(float(np.abs(akern[k][0].correction - atwin[k][0].correction).max()) for k in atwin)
     same_iters = all(akern[k][0].iterations == atwin[k][0].iterations for k in atwin)
+    # the dual's twin witness: its first Newton iteration through the kernel
+    # and through the twin (the whole solve through the twin, 53.7-90.8 s,
+    # until the tracking phase needed the time)
+    sma_obj = [Objective.within_tolerance("sma", 8000.0, 1e-3)]
+    half = epoch + leo.orbit.period_s / 2.0
+    t0 = time.perf_counter()
+    first = {b: Targeter.delta_v(split_prop(b), sma_obj, iterations=1).try_achieve_dual(
+        leo, epoch, half, device=device) for b in ("auto", "torch")}
+    sync()
+    d_first = float(np.abs(first["auto"].correction - first["torch"].correction).max())
+    _log(f"  21x21 split dual's first Newton iteration through the kernel and the twin "
+         f"({time.perf_counter() - t0:.3f} s): corrections {d_first:.3e} km/s apart")
+    d_twin = max(d_twin, d_first)
     fd, dual = a2b["sma_fd"][0].correction, a2b["sma_dual"][0].correction
     d_dual = float(np.abs(fd - dual).max())
     fd, dual = akern["sma_fd"][0].correction, akern["sma_dual"][0].correction
     d_dual_split = abs(float(np.linalg.norm(fd) - np.linalg.norm(dual)))
-    solves = len(a2b) + len(akern) + len(atwin)
+    solves = len(a2b) + len(akern) + len(atwin)  # the dual's single iterations not counted
     _log(f"  (a) Pines launches on the split solves {launches}, twin primal calls on CUDA {twin_calls}; "
-         f"split {split_wall:.3f} s for {len(akern)} solves; kernel vs twin (sma by FD and dual): same "
+         f"split {split_wall:.3f} s for {len(akern)} solves; kernel vs twin (sma by FD, the dual's first "
+         f"iteration): same "
          f"Newton iterations {same_iters}, corrections within {d_twin:.3e} km/s; dual vs FD {d_dual:.3e} km/s "
          f"(two-body); split: magnitudes {d_dual_split:.3e} km/s apart, components "
          f"{float(np.abs(fd - dual).max()):.3e}")
@@ -1812,7 +2106,7 @@ def phase_mission_design(gp, stor21, device="cuda"):
         raise RuntimeError("mission design (e): the sequence's masses, energy or timeline are off")
 
     prop = split_prop("auto")
-    period = leo.orbit.period_s
+    period = leo.orbit.period_s / 2.0
     gp.pines_accel_cuda.launches = 0
     sync()
     t0 = time.perf_counter()
@@ -1835,7 +2129,7 @@ def phase_mission_design(gp, stor21, device="cuda"):
     block = phi[:6, :6]
     big = np.abs(block) >= MD_STM_BIG * np.abs(block).max()
     d_stm = float((np.abs(block - jac)[big] / np.abs(block)[big]).max())
-    _log(f"  (e) STM over one orbit ({period:.1f} s) under the split field: {stm_wall:.3f} s, "
+    _log(f"  (e) STM over half an orbit ({period:.1f} s) under the split field: {stm_wall:.3f} s, "
          f"{inst.last_result.iterations} iterations, Pines launches {stm_launches}; against central "
          f"differences {d_stm:.3e} relative on the {int(big.sum())} entries of at least {MD_STM_BIG:g} of the "
          f"largest ({np.abs(block).max():.4g})")
@@ -1847,6 +2141,163 @@ def phase_mission_design(gp, stor21, device="cuda"):
     _log(f"  walls: " + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()))
     _log(f"Mission design phase: {wall:.1f} s, {solves} targeter solves ({solves / wall:.3f} a second)")
     return dict(launches=launches, porkchop_cells_per_s=cells_per_s, solves=solves, wall=wall)
+
+
+def phase_tracking_od(gp, device="cuda"):
+    """The tracking side of OD on `device` (the card; "cpu" rehearses it):
+    (a) ex05's crosslink OD (`ex05_flow`) over its 2 h: stage walls, then
+    the guards: the port's CPU counts (EX05_CPU_*), its final error within
+    EX05_CPU_TOL_M of the CPU's and within EX05_REFERENCE_TOL_M of the
+    reference's artifact, the residual-versus-reference run accepting
+    nothing, the three parquets read back, no Pines launch (point masses
+    only); (b) ex06's OD (`ex06_scene`, the 50x50 field at split precision)
+    over its first EX06_HOURS: the truth, timed, with its kernel launches;
+    the stations' and tracking YAML written and read back; the arc; the
+    zero-noise cross-body CKF from the truth over the arc's first
+    EX06_CKF_S (range prefits under EX06_PREFIT_KM); the EKF from the dispersed start, timed, with its
+    kernel launches (no twin primal call on CUDA), its final error under
+    half the initial one, range postfit RMS and mean NIS; and the truth's
+    first EX06_TWIN_PREFIX_S through the kernel and the twin (within
+    1e-9 km). The parquets and YAML go to a temporary directory, removed
+    after. Returns the summary's numbers."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_6i_") as tmp:
+        return _tracking_od(gp, device, Path(tmp))
+
+
+def _tracking_od(gp, device, out_dir):
+    import pyarrow.parquet as pq
+
+    from nyx_tpu_torch import Epoch
+    from nyx_tpu_torch.od import MeasurementType, TrackingArcSim, TrackingDataArc
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def reset():
+        gp.pines_accel_cuda.launches = 0
+        gp.pines_accel_torch.cuda_calls = 0
+
+    t_phase = time.perf_counter()
+    card = _card_line()
+
+    # (a) ex05
+    reset()
+    ex = ex05_flow(EX05_HOURS, device=device, out_dir=out_dir)
+    ex05_launches = gp.pines_accel_cuda.launches
+    rows, acc = len(ex.arc_2h), ex.sol.accepted
+    rej = int(np.sum(ex.sol.rejected))
+    ex05_rate = rows / ex.walls["od"]
+    truth_ms = 1e3 * (ex.walls["tx truth"] + ex.walls["llo truth"]) / ex.iterations
+    _log(f"Tracking phase ({card}), (a) ex05 over {EX05_HOURS:g} h of its 12 h truths:")
+    _log("  walls: " + ", ".join(f"{k} {v:.3f} s" for k, v in ex.walls.items()) + f"; truths "
+         f"{ex.iterations} integrator iterations, {truth_ms:.3f} ms an iteration")
+    _log(f"  {len(ex.arc)} crosslink measurements, {rows} in the OD's {EX05_OD_S:g} s: {acc} accepted, {rej} "
+         f"rejected, {ex05_rate:.2f} rows/s; segments {ex.od_walls['segments']}, s1 iterations "
+         f"{ex.od_walls['s1_iterations']}; " + ", ".join(f"{k} {ex.od_walls[k]:.3f} s" for k in ("s1", "s2", "s3", "s4")))
+    _log(f"  initial error {ex.init_err_m:.1f} m; final error {ex.err_m:.4f} m (RIC "
+         f"{np.array2string(ex.err_ric_m, precision=2)} m; the port's CPU run {EX05_CPU_ERROR_M:.4f} m, the "
+         f"reference's {EX05_REFERENCE_ERROR_M} m); pure propagation {ex.prop_err_m:.1f} m, "
+         f"{ex.rvr.accepted} accepted; Pines launches {ex05_launches}")
+    back = TrackingDataArc.from_parquet(ex.paths[0])
+    tables_ok = (np.array_equal(back.epochs_tai_s, ex.arc.epochs_tai_s)
+                 and np.array_equal(back.values, ex.arc.values, equal_nan=True)
+                 and all(pq.read_table(str(p)).num_rows == rows for p in ex.paths[1:]))
+    if (rows, acc, rej) != (EX05_CPU_ROWS, EX05_CPU_ACCEPTED, EX05_CPU_ROWS - EX05_CPU_ACCEPTED):
+        raise RuntimeError(f"ex05: {rows} rows, {acc} accepted, {rej} rejected; the CPU run gave "
+                           f"{EX05_CPU_ROWS}, {EX05_CPU_ACCEPTED}")
+    if not (abs(ex.err_m - EX05_CPU_ERROR_M) < EX05_CPU_TOL_M
+            and abs(ex.err_m - EX05_REFERENCE_ERROR_M) < EX05_REFERENCE_TOL_M):
+        raise RuntimeError(f"ex05: final error {ex.err_m} m")
+    if ex.rvr.accepted != 0 or not tables_ok or ex05_launches != 0:
+        raise RuntimeError(f"ex05: resid-vs-ref accepted {ex.rvr.accepted}, parquets read back {tables_ok}, "
+                           f"{ex05_launches} Pines launches")
+
+    # (b) ex06
+    seconds = EX06_HOURS * 3600.0
+    scene = ex06_scene(ex06_moon_field(EX06_DEGREE), "split", yaml_dir=out_dir, device=device)
+    prop, alm = scene.propagator("auto"), scene.almanac
+    prop.with_state(scene.orbiter, alm, device=device).for_duration(60.0)  # warm-up: caches and allocator
+    reset()
+    inst = prop.with_state(scene.orbiter, alm, device=device)
+    sync()
+    t0 = time.perf_counter()
+    _, traj = inst.for_duration_with_traj(seconds)
+    sync()
+    truth_wall = time.perf_counter() - t0
+    truth_launches, truth_twin = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
+    res = inst.last_result
+    ex06_ms = 1e3 * truth_wall / res.iterations
+    _log(f"Tracking phase, (b) ex06 ({EX06_DEGREE}x{EX06_DEGREE} split, Earth, Sun and Jupiter, SRP) over "
+         f"{EX06_HOURS:g} h of its 2 days: truth wall {truth_wall:.3f} s, {len(traj)} nodes, integrator "
+         f"iterations {res.iterations}, {ex06_ms:.3f} ms an iteration; Pines launches {truth_launches}, twin "
+         f"calls on CUDA {truth_twin}")
+    if not np.isfinite(traj.ys).all() or traj.ts[-1] != seconds:
+        raise RuntimeError("ex06 truth: nodes are not finite or the arc is short")
+    stations = scene.stations(scene.epoch, scene.epoch + seconds)
+    t0 = time.perf_counter()
+    arc = TrackingArcSim.with_seed(stations, traj, scene.configs, seed=123, device=device).generate_measurements()
+    arc0 = TrackingArcSim.with_seed([g.perfect() for g in stations], traj, scene.configs, seed=123,
+                                    device=device).generate_measurements()
+    sim_wall = time.perf_counter() - t0
+    per = {n: int(np.sum(arc.tracker_idx == i)) for i, n in enumerate(arc.trackers)}
+    _log(f"  stations {', '.join(scene.devices)} from the YAML, each with_target_frame(MOON); {len(arc)} rows "
+         f"{per} and the zero-noise arc, simulated in {sim_wall:.3f} s")
+
+    # the zero-noise CKF from the truth
+    reset()
+    t0 = time.perf_counter()
+    sol0 = scene.od(stations, "auto", "ckf").process_arc(scene.unc.to_estimate(), _head(arc0, EX06_CKF_S))
+    sync()
+    ckf_wall = time.perf_counter() - t0
+    prefit_km = float(np.abs(sol0.prefit[:, 0]).max())
+    ckf_launches, ckf_twin = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
+    _log(f"  zero-noise cross-body CKF from the truth over the first {EX06_CKF_S:g} s: {ckf_wall:.3f} s, range prefits within {prefit_km:.3e} km; "
+         f"Pines launches {ckf_launches}, twin calls on CUDA {ckf_twin}")
+
+    # the EKF, timed
+    od = scene.od(stations)
+    reset()
+    sync()
+    t0 = time.perf_counter()
+    sol = od.process_arc(scene.est0, arc)
+    sync()
+    wall = time.perf_counter() - t0
+    launches, twin_calls = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
+    w = od.stage_walls_s
+    ex06_rate = len(arc) / wall
+    truth_fin = traj.at(Epoch.from_tai_seconds_j2000(float(sol.epochs_tai_s[-1]))).to_vector()
+    err_km = float(np.linalg.norm(sol.final_state()[:3] - truth_fin[:3]))
+    init_km = float(np.linalg.norm(scene.dispersed.orbit.r_km - scene.orbit.r_km))
+    accepted = ~np.asarray(sol.rejected)
+    ridx = sol.types.index(MeasurementType.RANGE_KM)
+    rms_km = float(np.sqrt(np.mean(sol.postfit[accepted, ridx] ** 2)))
+    nis = float(np.mean(sol.ratio[accepted] ** 2))
+    _log(f"  EKF (segment_rows {EX06_SEGMENT_ROWS}, SNC, 3-sigma gate, stm_jvp_degree 8), timed process_arc: rows {len(arc)}, "
+         f"segments {w['segments']}, s1 iterations {w['s1_iterations']}; wall {wall:.3f} s, {ex06_rate:.2f} "
+         f"rows/s; " + ", ".join(f"{k} {w[k]:.3f} s" for k in ("s1", "s2", "s3", "s4")))
+    _log(f"  Pines launches {launches}, twin primal calls on CUDA {twin_calls}; {sol.accepted} accepted; final "
+         f"error {err_km * 1e3:.3f} m from an initial {init_km * 1e3:.1f} m; range postfit RMS "
+         f"{rms_km * 1e3:.3f} m; mean NIS {nis:.3f}")
+    if truth_launches <= 0 or launches <= 0 or truth_twin or ckf_twin or twin_calls:
+        raise RuntimeError(f"ex06 did not run through the kernel: {truth_launches} and {launches} launches, "
+                           f"{truth_twin}, {ckf_twin} and {twin_calls} twin calls on CUDA")
+    if not prefit_km < EX06_PREFIT_KM:
+        raise RuntimeError(f"ex06 zero-noise CKF: range prefit {prefit_km} km")
+    if sol.y_est.shape != (len(arc), 9) or not np.isfinite(sol.y_est).all() or not err_km < 0.5 * init_km:
+        raise RuntimeError(f"ex06 EKF: final error {err_km * 1e3:.1f} m from an initial {init_km * 1e3:.1f} m")
+
+    # the twin witness over the truth's first EX06_TWIN_PREFIX_S
+    finals = {b: scene.propagator(b).with_state(scene.orbiter, alm, device=device).for_duration(
+        EX06_TWIN_PREFIX_S).orbit.r_km for b in ("auto", "torch")}
+    d_twin = float(np.linalg.norm(finals["auto"] - finals["torch"]))
+    _log(f"  twin witness over the first {EX06_TWIN_PREFIX_S:g} s: final positions {d_twin:.3e} km apart")
+    if not d_twin < 1e-9:
+        raise RuntimeError(f"ex06: kernel and twin truths differ by {d_twin} km")
+    _log(f"Tracking phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(ex05_rows_per_s=ex05_rate, ex06_rows_per_s=ex06_rate, launches_ex06=launches,
+                launches_ex06_truth=truth_launches, ex06_truth_ms_per_iter=ex06_ms)
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1899,6 +2350,7 @@ def main() -> None:
         "120x120": Harmonics.from_stor(extend_kaula(stor70, 120, 7), "split"),
         "160x160": Harmonics.from_stor(extend_kaula(stor70, 160, 8), "split"),
         "moon80x80": Harmonics.from_stor(kaula_moon_field(80), "split"),
+        "moon50x50": Harmonics.from_stor(ex06_moon_field(EX06_DEGREE), "split"),
     }
     k3 = phase_kernel_vs_twin(gp, fields, parent)
 
@@ -1956,6 +2408,9 @@ def main() -> None:
     # phase 6h: mission design
     mission = phase_mission_design(gp, stor21)
 
+    # phase 6i: the tracking side of OD, ex05's crosslink OD and ex06's cross-body lunar OD
+    tracking = phase_tracking_od(gp)
+
     # phase 7: summary
     _log(f"chip_smoke.py command time: {time.perf_counter() - _T_START:.1f} s")
     ms21, bound21, bound_by = k3["times"]["21x21"]
@@ -2005,6 +2460,11 @@ def main() -> None:
         "ex02_encke_traj_per_s": config3["ex02_encke_traj_per_s"],
         "launches_mission_design": mission["launches"],
         "porkchop_cells_per_s": mission["porkchop_cells_per_s"],
+        "launches_ex06": tracking["launches_ex06"],
+        "launches_ex06_truth": tracking["launches_ex06_truth"],
+        "ex06_truth_ms_per_iter": tracking["ex06_truth_ms_per_iter"],
+        "ex05_rows_per_s": tracking["ex05_rows_per_s"],
+        "ex06_rows_per_s": tracking["ex06_rows_per_s"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

@@ -1,18 +1,22 @@
-"""Filter estimates, and initial estimates from local-frame sigmas.
+"""Filter estimates, residuals, and initial estimates from local-frame sigmas.
 
-Host-side numpy copy of nyx_tpu/od/estimate.py: `KfEstimate` (:23-75) and
-`SpacecraftUncertainty.to_estimate` (:148-198), whose local-frame rotation
-is host numpy as in the reference (it keeps seeded draws from a rotated,
-degenerate covariance the same on every platform). Residuals, the
-Keplerian covariance and randomized estimates are not ported yet.
+Host-side numpy copy of nyx_tpu/od/estimate.py:22-224: `KfEstimate` with its
+sigma checks, its Keplerian covariance (the element map's Jacobian by
+`torch.func.jacfwd`, where the reference takes `jax.jacfwd`) and its
+covariance in RIC or VNC; `Residual`; and `SpacecraftUncertainty`, whose
+local-frame rotation and randomized draw are host numpy as in the
+reference (see `to_estimate_randomized`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
+import torch
 
+from ..cosmic.orbit import keplerian_from_cartesian, ric_dcm, vnc_dcm
 from ..cosmic.spacecraft import Spacecraft
 from ..time import Epoch
 
@@ -51,6 +55,68 @@ class KfEstimate:
 
     def sigma_for(self, index: int) -> float:
         return float(np.sqrt(self.covar[index, index]))
+
+    def within_sigma(self, truth: Spacecraft, num_sigmas: float) -> bool:
+        """Is the truth's position and velocity within `num_sigmas` of the
+        best estimate, axis by axis?"""
+        err = truth.to_vector() - self.state().to_vector()
+        sig = np.sqrt(np.diag(self.covar))
+        return bool(np.all(np.abs(err[:6]) <= num_sigmas * sig[:6]))
+
+    def deviation_within_sigma(self, num_sigmas: float) -> bool:
+        """Is the filter's own deviation within `num_sigmas` of its
+        covariance (no truth needed)?"""
+        sig = np.sqrt(np.diag(self.covar))
+        return bool(np.all(np.abs(self.state_deviation) <= num_sigmas * sig))
+
+    def within_3sigma(self) -> bool:
+        return self.deviation_within_sigma(3.0)
+
+    def keplerian_covar(self) -> np.ndarray:
+        """6x6 covariance of (sma km, ecc, inc, raan, aop, ta in degrees):
+        the Cartesian covariance through the Jacobian of the osculating
+        element map, by forward mode."""
+        mu = self.nominal.orbit.frame.mu_km3_s2
+
+        def elems(rv6):
+            k = keplerian_from_cartesian(rv6[0:3], rv6[3:6], mu)
+            return torch.stack([k["sma"], k["ecc"]] + [torch.rad2deg(k[n]) for n in
+                                                       ("inc", "raan", "aop", "ta")])
+
+        rv6 = torch.tensor(self.nominal.to_vector()[:6], dtype=torch.float64)
+        jac = torch.func.jacfwd(elems)(rv6).numpy()
+        return jac @ self.covar[0:6, 0:6] @ jac.T
+
+    def covar_in_frame(self, local_frame: str) -> np.ndarray:
+        """6x6 position/velocity covariance rotated into RIC or VNC."""
+        r, v = (torch.tensor(np.asarray(x, dtype=np.float64)) for x in
+                (self.nominal.orbit.r_km, self.nominal.orbit.v_km_s))
+        dcm3 = (ric_dcm(r, v) if local_frame.lower() == "ric" else vnc_dcm(r, v)).numpy()
+        dcm6 = np.zeros((6, 6))
+        dcm6[0:3, 0:3] = dcm3
+        dcm6[3:6, 3:6] = dcm3
+        return dcm6 @ self.covar[0:6, 0:6] @ dcm6.T
+
+
+@dataclass
+class Residual:
+    """Pre- and post-fit residuals and the rejection ratio of one
+    measurement; `real_obs` and `computed_obs` are the observed and
+    computed values."""
+
+    epoch: Epoch
+    tracker: str
+    msr_types: tuple
+    prefit: np.ndarray
+    postfit: np.ndarray
+    ratio: float
+    rejected: bool
+    real_obs: Optional[np.ndarray] = None
+    computed_obs: Optional[np.ndarray] = None
+
+    def __str__(self):
+        tag = "REJECTED " if self.rejected else ""
+        return f"{tag}residual at {self.epoch} [{self.tracker}]: prefit {self.prefit}, ratio {self.ratio:.3f}"
 
 
 @dataclass
@@ -97,3 +163,21 @@ class SpacecraftUncertainty:
         p[7, 7] = self.cd**2
         p[8, 8] = self.prop_mass_kg**2
         return KfEstimate.from_covar(self.nominal, p)
+
+    def to_estimate_randomized(self, rng: np.random.Generator):
+        """(estimate, dispersed truth): the nominal moved by one draw from
+        the uncertainty. The draw is L z, L the Cholesky factor of the
+        covariance's nonzero block and z nine standard normals from `rng`,
+        not `rng.multivariate_normal`: its SVD is discontinuous on a
+        rotationally degenerate covariance (isotropic sigmas), so a 1e-16
+        difference in the rotated matrix gave a wholly different (equally
+        valid) draw. Cholesky is continuous in the matrix."""
+        est = self.to_estimate()
+        p = np.asarray(est.covar)
+        mask = np.diag(p) > 0.0
+        l_f = np.zeros_like(p)
+        if mask.any():
+            l_f[np.ix_(mask, mask)] = np.linalg.cholesky(p[np.ix_(mask, mask)])
+        draw = l_f @ rng.standard_normal(STATE_DIM)
+        truth = self.nominal.set_vector(self.nominal.epoch, self.nominal.to_vector() + draw)
+        return est, truth

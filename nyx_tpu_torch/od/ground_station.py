@@ -1,27 +1,33 @@
 """Ground stations: geometry, visibility, one-way and two-way observables.
 
-Torch port of the core of nyx_tpu/od/ground_station.py. Observables are
-batched over epochs: `station_geometry` gives each epoch's station
-position and velocity in J2000 and the J2000 -> SEZ rotation, and
-`observe` the range, range rate, azimuth, elevation or position of a
-spacecraft state against it, optionally backdated by the downlink light
-time (`light_time_backdate`, per row). The station velocity is d/dt of
-`frame.dcm_from_j2000(t).T @ r_bf`, taken with `torch.func.jvp` over time
-as the reference takes it with `jax.jvp`. The OD filter gathers the
-geometry by tracker index (per-row latitude, longitude and height) and
-differentiates `observe` alone. A two-way observable (`two_way_fn`) is the
-average of the one-way values at t - T_int and t. The station's body is its
-frame's: its radius and flattening shape the geodetic conversion, its
-orientation model the rotation (IAU_MOON stations sit on a sphere of
-1,737.4 km). YAML I/O, terrain masks, timestamp noise and cross-body
-targets are not ported yet: `require_same_center` refuses a spacecraft
-state about another body than the stations'.
+Torch port of nyx_tpu/od/ground_station.py. Observables are batched over
+epochs: `station_geometry` gives each epoch's station position and velocity
+in J2000 and the J2000 -> SEZ rotation, and `observe` the range, range rate,
+azimuth, elevation or position of a spacecraft state against it, optionally
+backdated by the downlink light time (`light_time_backdate`, per row). The
+station velocity is d/dt of `frame.dcm_from_j2000(t).T @ r_bf`, taken with
+`torch.func.jvp` over time as the reference takes it with `jax.jvp`. The OD
+filter gathers the geometry by tracker index (per-row latitude, longitude
+and height) and differentiates `observe` alone. A two-way observable
+(`two_way_fn`) is the average of the one-way values at t - T_int and t. The
+station's body is its frame's: its radius and flattening shape the geodetic
+conversion, its orientation model the rotation (IAU_MOON stations sit on a
+sphere of 1,737.4 km).
+
+A station tracks a spacecraft about another body through
+`with_target_frame`: a table of that body's state about the station's
+(`target_center_offset`, a `DeviceTrajectory` from the almanac) is added to
+every spacecraft state before the geometry. `require_same_center` refuses a
+device set that cannot observe states about a given body. Also here:
+azimuth-dependent terrain masks (`TerrainMask`), timestamp noise, the
+measurement-type editors, and the YAML `load` / `load_many` /
+`load_named` / `save` (through `io/config.py`).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,7 +37,9 @@ from ..constants import SPEED_OF_LIGHT_KM_S
 from ..cosmic.frames import Frame, Frames
 from ..cosmic.rotations import apply_dcm, apply_dcm_t
 from ..errors import ConfigError
+from ..time import Epoch
 from ..xmath import norm
+from .interlink import DeviceTrajectory, _on, is_interlink
 from .msr import MeasurementType
 from .noise import StochasticNoise
 
@@ -84,16 +92,28 @@ def station_geometry(t_tdb, lat_deg, lon_deg, height_km, frame: Frame):
     return r_st, v_st, sez
 
 
+def tracked_center(device) -> int:
+    """NAIF id of the body whose states `device` observes: a station's
+    body, or the target of its centre-offset table; an interlink
+    transmitter's trajectory's centre."""
+    off = getattr(device, "target_center_offset", None)
+    if off is not None:
+        return off.center
+    if is_interlink(device):
+        return device.dev_traj.center
+    return device.frame.center
+
+
 def require_same_center(devices, state_frame: Frame) -> None:
-    """Raise ConfigError unless every station's body is the centre of
-    `state_frame`: the geometry subtracts station positions about their
-    body from spacecraft states about theirs, and the cross-body offset
-    (the reference's `GroundStation.with_target_frame`) is not ported."""
+    """Raise ConfigError unless every device observes states about the
+    centre of `state_frame` (`tracked_center`): a station subtracts its
+    position about its own body from the spacecraft state, so a station on
+    another body needs `with_target_frame` to that centre."""
     for d in devices:
-        if d.frame.center != state_frame.center:
+        if tracked_center(d) != state_frame.center:
             raise ConfigError(
-                f"station {d.name} is on {d.frame} but the spacecraft state is in {state_frame}: "
-                "cross-body tracking (with_target_frame) is not ported")
+                f"device {d.name} observes states about body {tracked_center(d)} but the spacecraft "
+                f"state is in {state_frame}: give the station with_target_frame to that centre")
 
 
 def light_time_backdate(rv6, r_st):
@@ -135,6 +155,35 @@ def observe(rv6, r_st, v_st, sez, types: Sequence[str], lt=None):
 
 
 @dataclass
+class TerrainMask:
+    """Azimuth-dependent minimum elevation: breakpoints (azimuth_deg,
+    min_elevation_deg); between breakpoints the mask holds the value of
+    the region's start azimuth (a step function wrapping at 360 deg).
+    `from_flat_terrain` is the constant mask."""
+
+    azimuths_deg: np.ndarray
+    elevations_deg: np.ndarray
+
+    def __post_init__(self):
+        az = np.mod(np.asarray(self.azimuths_deg, dtype=np.float64), 360.0)
+        el = np.asarray(self.elevations_deg, dtype=np.float64)
+        order = np.argsort(az)
+        self.azimuths_deg, self.elevations_deg = az[order], el[order]
+
+    @classmethod
+    def from_flat_terrain(cls, elevation_deg: float) -> "TerrainMask":
+        return cls(np.array([0.0]), np.array([float(elevation_deg)]))
+
+    def min_elevation_at(self, az_deg):
+        """Minimum visible elevation (deg) at the azimuth(s)."""
+        az = np.mod(np.asarray(az_deg, dtype=np.float64), 360.0)
+        idx = np.searchsorted(self.azimuths_deg, az, side="right") - 1
+        # azimuths below the first breakpoint wrap to the last region
+        idx = np.where(idx < 0, len(self.azimuths_deg) - 1, idx)
+        return self.elevations_deg[idx]
+
+
+@dataclass
 class GroundStation:
     """A tracking ground station."""
 
@@ -151,7 +200,14 @@ class GroundStation:
     # two-way integration time (None or 0: one-way observables)
     integration_time_s: Optional[float] = None
     light_time_correction: bool = False
+    timestamp_noise_s: Optional[StochasticNoise] = None
     stochastic_noises: Dict[str, StochasticNoise] = field(default_factory=dict)
+    # an azimuth-dependent elevation mask on top of elevation_mask_deg
+    terrain_mask: Optional[TerrainMask] = None
+    terrain_mask_ignored: bool = False
+    # cross-body tracking: the trajectory's centre about the station's body
+    # (see with_target_frame), added to every spacecraft state
+    target_center_offset: Optional[DeviceTrajectory] = None
 
     # -- DSN builtins, IAU_EARTH geodetic coordinates (the reference's
     # ground_station.py:120-136) ------------------------------------------
@@ -177,6 +233,50 @@ class GroundStation:
         }
         return self
 
+    def with_msr_type(self, mtype: str, noise: StochasticNoise) -> "GroundStation":
+        out = replace(self, measurement_types=tuple(dict.fromkeys(self.measurement_types + (mtype,))))
+        out.stochastic_noises = dict(self.stochastic_noises)
+        out.stochastic_noises[mtype] = noise
+        return out
+
+    def without_msr_type(self, mtype: str) -> "GroundStation":
+        out = replace(self, measurement_types=tuple(t for t in self.measurement_types if t != mtype))
+        out.stochastic_noises = dict(self.stochastic_noises)
+        out.stochastic_noises.pop(mtype, None)
+        return out
+
+    def perfect(self) -> "GroundStation":
+        """A copy with noiseless measurements."""
+        out = replace(self)
+        out.stochastic_noises = {t: StochasticNoise.zero() for t in self.measurement_types}
+        return out
+
+    def with_target_frame(self, almanac, center: int, start: Epoch, end: Epoch,
+                          step_s: float = 300.0) -> "GroundStation":
+        """A copy that tracks a trajectory about `center` (a NAIF id, 301
+        for a lunar orbiter tracked from the Earth): `center`'s state about
+        the station's body every `step_s` over [start - 2 step, end + 2
+        step], positions from `almanac.position` and velocities by central
+        differences over 2 s, in a Hermite table."""
+        t0 = start.to_tdb_seconds() - 2 * step_s
+        t1 = end.to_tdb_seconds() + 2 * step_s
+        ts = np.arange(t0, t1 + step_s, step_s)
+        body = self.frame.center
+        rs = almanac.position(center, body, ts)
+        h = 2.0
+        vs = (almanac.position(center, body, ts + h) - almanac.position(center, body, ts - h)) / (2.0 * h)
+        out = replace(self, target_center_offset=DeviceTrajectory(
+            ts, np.concatenate([rs, vs], axis=1), int(center)))
+        out.stochastic_noises = self.stochastic_noises
+        return out
+
+    def _shift_to_station_center(self, t_tdb, rv6):
+        """States rv6 [K, 6] about the trajectory's centre moved onto the
+        station's body (unchanged without an offset table)."""
+        if self.target_center_offset is None:
+            return rv6
+        return rv6 + self.target_center_offset.state_at(t_tdb)
+
     # ------------------------------------------------------------------
     def _geometry(self, t_tdb):
         k = dict(dtype=torch.float64, device=t_tdb.device)
@@ -185,9 +285,19 @@ class GroundStation:
         return station_geometry(t_tdb, lat, lon, hgt, self.frame)
 
     def _one_way(self, t_tdb, rv6, types):
-        """[K, T] observables at TDB epochs t_tdb [K] of states rv6 [K, 6],
-        backdated by the light time if the station corrects for it."""
-        return observe(rv6, *self._geometry(t_tdb), types, lt=self.light_time_correction)
+        """[K, T] observables at TDB epochs t_tdb [K] of states rv6 [K, 6]
+        (about the trajectory's centre), backdated by the light time if the
+        station corrects for it."""
+        return observe(self._shift_to_station_center(t_tdb, rv6), *self._geometry(t_tdb), types,
+                       lt=self.light_time_correction)
+
+    def azimuth_elevation_range(self, t_tdb, rv6):
+        """(azimuth_deg, elevation_deg, range_km, range_rate_km_s), each [K],
+        without the light time."""
+        out = observe(self._shift_to_station_center(t_tdb, rv6), *self._geometry(t_tdb),
+                      (MeasurementType.AZIMUTH_DEG, MeasurementType.ELEVATION_DEG,
+                       MeasurementType.RANGE_KM, MeasurementType.DOPPLER_KM_S))
+        return out[:, 0], out[:, 1], out[:, 2], out[:, 3]
 
     def two_way_fn(self, types: Optional[Sequence[str]] = None):
         """`h2(t_tdb [K], rv6_t [K, 6], rv6_tm [K, 6]) -> [K, T]`: the
@@ -210,6 +320,7 @@ class GroundStation:
         numpy (values [K, T], elevation_deg [K])."""
         types = tuple(types or self.measurement_types)
         t, y = _on(ts_tdb_s, ys6, device)
+        y = self._shift_to_station_center(t, y)
         geo = self._geometry(t)
         if not self.light_time_correction:
             out = observe(y, *geo, types + (MeasurementType.ELEVATION_DEG,)).cpu().numpy()
@@ -222,11 +333,76 @@ class GroundStation:
         """(azimuth_deg [K], elevation_deg [K]) over a sample grid, computed
         on `device`, as numpy."""
         t, y = _on(ts_tdb_s, ys6, device)
-        out = self._one_way(t, y, (MeasurementType.AZIMUTH_DEG,
-                                   MeasurementType.ELEVATION_DEG)).cpu().numpy()
-        return out[:, 0], out[:, 1]
+        az, el, _, _ = self.azimuth_elevation_range(t, y)
+        return az.cpu().numpy(), el.cpu().numpy()
 
+    @property
+    def active_terrain_mask(self) -> Optional[TerrainMask]:
+        """The terrain mask, or None where there is none or it is ignored."""
+        return None if self.terrain_mask_ignored else self.terrain_mask
 
-def _on(ts, ys6, device):
-    k = dict(dtype=torch.float64, device=device)
-    return torch.as_tensor(np.asarray(ts), **k), torch.as_tensor(np.asarray(ys6)[:, :6], **k)
+    def min_elevation_deg(self, az_deg):
+        """Minimum visible elevation (deg) at the azimuth(s): the flat
+        elevation mask, raised by the active terrain mask."""
+        min_el = np.full(np.shape(az_deg), self.elevation_mask_deg)
+        if self.active_terrain_mask is not None:
+            min_el = np.maximum(min_el, self.active_terrain_mask.min_elevation_at(az_deg))
+        return min_el
+
+    def visible(self, az_deg, el_deg):
+        """Host-side visibility: the flat elevation mask and, unless
+        ignored, the terrain mask."""
+        return np.asarray(el_deg) >= self.min_elevation_deg(az_deg)
+
+    def elevation_of(self, t_tdb_s: float, rv6, *, device="cuda") -> float:
+        """Elevation (deg) of one state at one TDB epoch, on `device`."""
+        t, y = _on([t_tdb_s], np.asarray(rv6, dtype=np.float64)[None], device)
+        return float(self.azimuth_elevation_range(t, y)[1][0])
+
+    def measure_instantaneous(self, epoch: Epoch, rv6, rng_np: np.random.Generator,
+                              noise_state=None, *, device="cuda"):
+        """A simulated noisy measurement dict at `epoch`, or None below the
+        elevation mask: the noise of `noise_state` if given, else the
+        types' white noise alone."""
+        t, y = _on([epoch.to_tdb_seconds()], np.asarray(rv6, dtype=np.float64)[None], device)
+        if float(self.azimuth_elevation_range(t, y)[1][0]) < self.elevation_mask_deg:
+            return None
+        vals = self._one_way(t, y, self.measurement_types)[0].cpu().numpy()
+        t_tai = epoch.to_tai_seconds()
+        out = {}
+        for j, mtype in enumerate(self.measurement_types):
+            noise = 0.0
+            if noise_state is not None:
+                noise = noise_state.sample(mtype, t_tai, rng_np)
+            elif mtype in self.stochastic_noises:
+                sn = self.stochastic_noises[mtype]
+                if sn.white_noise is not None:
+                    noise = sn.white_noise.sample(rng_np)
+            out[mtype] = float(vals[j]) + noise
+        return out
+
+    # -- YAML --------------------------------------------------------------
+    @classmethod
+    def load(cls, path) -> "GroundStation":
+        """The first station of a YAML document."""
+        from ..io.config import load_ground_stations
+
+        return load_ground_stations(path)[0]
+
+    @classmethod
+    def load_many(cls, path):
+        from ..io.config import load_ground_stations
+
+        return load_ground_stations(path)
+
+    @classmethod
+    def load_named(cls, path) -> Dict[str, "GroundStation"]:
+        from ..io.config import load_ground_stations
+
+        return {g.name: g for g in load_ground_stations(path)}
+
+    def save(self, path) -> str:
+        from ..io.config import save_ground_stations
+
+        return save_ground_stations([self], path)
+

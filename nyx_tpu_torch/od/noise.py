@@ -1,12 +1,15 @@
 """Measurement noise models.
 
-Host-side numpy copy of nyx_tpu/od/noise.py:21-135: `WhiteNoise`,
-`GaussMarkov`, `StochasticNoise` (white + optional Gauss-Markov bias, with
-the DSN default magnitudes) and `NoiseState`. Sampling draws from a
-caller-provided `numpy.random.Generator`, so a simulated arc is
-deterministic in one seed and draws the reference's numbers for the same
-schedule; the variances are plain floats that the filter's R uses. The
-link-budget helpers are not ported yet.
+Host-side numpy copy of nyx_tpu/od/noise.py: `WhiteNoise`, `GaussMarkov`,
+`StochasticNoise` (white + optional Gauss-Markov bias, with the DSN default
+magnitudes) and `NoiseState` (:21-135), and the link-budget noises
+(:130-216, the reference's od/noise/link_specific.rs): `SN0`, `CN0`,
+`CarrierFreq`, `ChipRate`, `WhiteNoise.from_pr_n0` and
+`StochasticNoise.from_hardware_range_km` / `from_hardware_doppler_km_s`.
+Sampling draws from a caller-provided `numpy.random.Generator`, so a
+simulated arc is deterministic in one seed and draws the reference's numbers
+for the same schedule; the variances are plain floats that the filter's R
+uses.
 """
 
 from __future__ import annotations
@@ -15,6 +18,52 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+from ..constants import SPEED_OF_LIGHT_KM_S as _SPEED_OF_LIGHT_KM_S
+
+_TAU = 2.0 * np.pi
+
+
+class SN0:
+    """Signal-power-to-noise-density ratio, in Hz (not dB-Hz)."""
+
+    Strong = 10.0 ** 6.5  # 65 dB-Hz
+    Average = 10.0 ** 5  # 50 dB-Hz
+    Poor = 10.0 ** 4  # 40 dB-Hz
+
+    @staticmethod
+    def from_db_hz(db: float) -> float:
+        return 10.0 ** (db / 10.0)
+
+
+class CN0:
+    """Carrier-power-to-noise-density ratio, in Hz."""
+
+    Strong = 10.0 ** 7  # 70 dB-Hz
+    Average = 10.0 ** 5.5  # 55 dB-Hz
+    Poor = 10.0 ** 4.5  # 45 dB-Hz
+
+    @staticmethod
+    def from_db_hz(db: float) -> float:
+        return 10.0 ** (db / 10.0)
+
+
+class CarrierFreq:
+    """Typical carrier frequencies, Hz."""
+
+    SBand = 2.2e9
+    XBand = 8.4e9
+    KaBand = 32e9
+
+
+class ChipRate:
+    """Typical ranging chip rates, chip/s."""
+
+    Lowest = 1e3
+    Low = 1e5
+    StandardT4B = 1e6
+    High = 1e7
+    VeryHigh = 2.5e7
 
 
 @dataclass(frozen=True)
@@ -28,6 +77,11 @@ class WhiteNoise:
 
     def sample(self, rng: np.random.Generator) -> float:
         return rng.normal(0.0, self.sigma)
+
+    @staticmethod
+    def from_pr_n0(pr_n0: float, bandwidth_hz: float) -> "WhiteNoise":
+        """sigma = c / (2 B sqrt(Pr/N0)), km."""
+        return WhiteNoise(_SPEED_OF_LIGHT_KM_S / (2.0 * bandwidth_hz * np.sqrt(pr_n0)))
 
 
 @dataclass
@@ -71,6 +125,38 @@ class StochasticNoise:
         # 3 mm/s white, 50 m/s GM
         return cls(white_noise=WhiteNoise(3.0e-6),
                    bias=GaussMarkov(tau_s=12.5 * 86400.0, process_noise=50.0e-3))
+
+    @classmethod
+    def default_angle_deg(cls) -> "StochasticNoise":
+        return cls(white_noise=WhiteNoise(1.0e-2))
+
+    @classmethod
+    def zero(cls) -> "StochasticNoise":
+        """A perfect (noiseless) measurement."""
+        return cls(white_noise=WhiteNoise(0.0))
+
+    @staticmethod
+    def from_hardware_range_km(allan_deviation, integration_time_s,
+                               chip_rate=None, s_n0=None) -> "StochasticNoise":
+        """Range noise from the clock (Allan deviation over the integration
+        time) and the thermal noise (chip rate, S/N0), root-sum-squared; no
+        atmosphere (~10 cm one-sigma more)."""
+        chip_rate = ChipRate.StandardT4B if chip_rate is None else chip_rate
+        s_n0 = SN0.Average if s_n0 is None else s_n0
+        sigma_thermal = _SPEED_OF_LIGHT_KM_S / (_TAU * chip_rate * np.sqrt(2.0 * s_n0))
+        sigma_clock = _SPEED_OF_LIGHT_KM_S * allan_deviation * integration_time_s / np.sqrt(3.0)
+        return StochasticNoise(white_noise=WhiteNoise(float(np.hypot(sigma_clock, sigma_thermal))))
+
+    @staticmethod
+    def from_hardware_doppler_km_s(allan_deviation, integration_time_s,
+                                   carrier=None, c_n0=None) -> "StochasticNoise":
+        """Doppler noise from the clock and the carrier's thermal noise."""
+        carrier = CarrierFreq.XBand if carrier is None else carrier
+        c_n0 = CN0.Average if c_n0 is None else c_n0
+        sigma_thermal = _SPEED_OF_LIGHT_KM_S / (
+            _TAU * carrier * np.sqrt(2.0 * c_n0 * integration_time_s))
+        sigma_clock = _SPEED_OF_LIGHT_KM_S * allan_deviation
+        return StochasticNoise(white_noise=WhiteNoise(float(np.hypot(sigma_clock, sigma_thermal))))
 
     def covariance(self) -> float:
         """Total variance used in the filter's R (white + bias steady state)."""

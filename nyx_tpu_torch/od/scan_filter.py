@@ -1,8 +1,11 @@
 """Batched orbit determination: the staged filters of nyx_tpu/od/scan_filter.py.
 
 Torch port of `ScanKalmanOD` with `prop_mode="batch"`, over ground
-stations. A classical Kalman filter linearizes about a nominal trajectory
-that does not depend on the measurements, so the reference
+stations (optionally tracking a spacecraft about another body through their
+centre-offset tables, `GroundStation.with_target_frame`) or interlink
+transmitters (`InterlinkTxSpacecraft`), one family a filter. A classical
+Kalman filter linearizes about a nominal trajectory that does not depend on
+the measurements, so the reference
 (`_build_batch`, scan_filter.py:699-1292) splits one arc into four stages,
 and so does the port, on the filter's device:
 
@@ -15,8 +18,11 @@ and so does the port, on the filter's device:
 - s3: each row's computed observation and its partials H (forward mode
   over the state; a two-way row averages the one-way values at t and at
   t - T_int, the state there interpolated from the nodes, see
-  `observe_rows`), the prefit z = observed - computed, R from the
-  stations' noise, and the SNC process noise Q;
+  `observe_rows` and `interlink_rows`; a transmitter's state and a
+  station's centre offset come from per-device Hermite tables gathered by
+  tracker index, functions of t alone, so they carry no tangent), the
+  prefit z = observed - computed, R from the devices' noise, and the SNC
+  process noise Q;
 - s4: the sequential Joseph update with Cholesky whitening and the sigma
   gate, 9x9 algebra row by row, at float64; or at float32 after scaling
   each state lane by 1/sqrt(P0_ii), in square-root form (see
@@ -40,10 +46,9 @@ saturated, in which case the buffer doubles and the pass (for the EKF,
 the whole arc) reruns.
 
 Not ported yet: the associative-scan filter (`filter_mode="parallel"`),
-prop_mode "fixed" and "adaptive", estimated measurement biases, interlink
-devices, cross-body station offsets, `process_arc_batch` and parquet
-export. The reference's ahead-of-time compile cache, compiler options and
-the EKF's padding of every segment to one row count (which only lets the
+prop_mode "fixed" and "adaptive", estimated measurement biases and
+`process_arc_batch`. The reference's ahead-of-time compile cache, compiler
+options and the EKF's padding of every segment to one row count (which only lets the
 segments share one compiled shape; a padded row is a masked update over a
 zero gap) are TPU tooling with no counterpart.
 """
@@ -65,7 +70,8 @@ from ..dynamics.spacecraft_dyn import SpacecraftDynamics
 from ..errors import ConfigError, PropagationError
 from ..propagators import integrator
 from ..time import Duration, Epoch
-from .ground_station import GroundStation, observe, require_same_center, station_geometry
+from .ground_station import observe, require_same_center, station_geometry
+from .interlink import is_interlink, link_observe, stack_tables, table_state_rows
 from .msr import TrackingDataArc
 
 STATE_DIM = 9
@@ -91,11 +97,33 @@ class ScanODResult:
     rejected: np.ndarray  # [M] bool
     types: Tuple[str, ...] = ()
 
+    @property
+    def accepted(self) -> int:
+        return int(np.sum(~self.rejected))
+
     def final_state(self) -> np.ndarray:
         return self.y_est[-1]
 
     def final_covar(self) -> np.ndarray:
         return self.covar[-1]
+
+    def to_parquet(self, path) -> str:
+        """The rows as parquet: epoch, rejection and ratio, each state
+        component with its sigma, and each type's pre- and post-fit
+        residuals (the reference's column names)."""
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        cols = {"epoch_tai_s": self.epochs_tai_s, "rejected": self.rejected, "ratio": self.ratio}
+        names = ["x_km", "y_km", "z_km", "vx_km_s", "vy_km_s", "vz_km_s", "mass_kg", "cr", "cd"]
+        for j, n in enumerate(names[: self.y_est.shape[1]]):
+            cols[n] = self.y_est[:, j]
+            cols[f"sigma_{n}"] = np.sqrt(self.covar[:, j, j])
+        for j, t in enumerate(self.types):
+            cols[f"prefit_{t}"] = self.prefit[:, j]
+            cols[f"postfit_{t}"] = self.postfit[:, j]
+        pq.write_table(pa.table(cols), str(path))
+        return str(path)
 
 
 def interp_quintic(ts_n, ys_n, acc_n, tq):
@@ -130,37 +158,36 @@ def interp_quintic(ts_n, ys_n, acc_n, tq):
     return torch.cat([r, v, rest0 + s * (rest1 - rest0)], dim=-1)
 
 
-def observe_rows(t_tdb, rv_t, rv_tm, lat, lon, hgt, lt, tint, frame, types):
+def _observe_folded(t_tdb, rv_t, rv_tm, tint, geometry, observe_fn):
     """Computed observations [M, T] and their partials H [M, T, 9] of M
-    rows at TDB epochs t_tdb [M], for stations given per row (lat, lon,
-    hgt [M]; lt [M], > 0 for a light-time-corrected station, or None for
-    none; tint [M], the two-way integration time, 0 for one-way).
+    rows at TDB epochs t_tdb [M]: `geometry(t [N], rows [N])` gives the
+    per-row tensors (or None) that `observe_fn(rv [N, 6], *geometry)`
+    observes states against, rows indexing the M rows.
 
     One-way rows observe the states rv_t [M, 6] at t. With rv_tm [M, 6],
-    the states at t - tint, a two-way row's value is the average of the
-    one-way values at both ends (each with its own station geometry), and
-    its H is 0.5 (H1 + H0 Phi_back), Phi_back being I with -tint I3 in
-    block [0:3, 3:6]: the backward flow to t - tint to first order (the
-    reference's stage 3, scan_filter.py:1141-1187). Both ends and the six
-    unit tangents of position and velocity are folded into the batch axis
-    of one forward-mode call; the observables do not depend on Cr, Cd or
-    mass, so those columns of H are zero."""
+    the states at t - tint (tint [M], 0 for one-way rows), a two-way row's
+    value is the average of the one-way values at both ends (each with its
+    own geometry), and its H is 0.5 (H1 + H0 Phi_back), Phi_back being I
+    with -tint I3 in block [0:3, 3:6]: the backward flow to t - tint to
+    first order (the reference's stage 3, scan_filter.py:1141-1187). Both
+    ends and the six unit tangents of position and velocity are folded into
+    the batch axis of one forward-mode call; the observables do not depend
+    on Cr, Cd or mass, so those columns of H are zero."""
     m_rows = t_tdb.shape[0]
+    rows = torch.arange(m_rows, device=t_tdb.device)
     ends = 1 if rv_tm is None else 2
     if ends == 2:
         t_tdb = torch.cat([t_tdb, t_tdb - tint])
         rv = torch.cat([rv_t, rv_tm])
-        lat, lon, hgt = (torch.cat([x, x]) for x in (lat, lon, hgt))
-        lt = None if lt is None else torch.cat([lt, lt])
+        rows = torch.cat([rows, rows])
     else:
         rv = rv_t
-    geo = station_geometry(t_tdb, lat, lon, hgt, frame)
+    geo = geometry(t_tdb, rows)
     n_rv, n = 6, ends * m_rows
     eye = torch.eye(n_rv, dtype=rv.dtype, device=rv.device)
-    geo6 = tuple(g.repeat((n_rv,) + (1,) * (g.dim() - 1)) for g in geo)
-    lt6 = None if lt is None else lt.repeat(n_rv)
+    geo6 = tuple(None if g is None else g.repeat((n_rv,) + (1,) * (g.dim() - 1)) for g in geo)
     computed, cols = torch.func.jvp(
-        lambda x: observe(x, *geo6, types, lt=lt6),
+        lambda x: observe_fn(x, *geo6),
         (rv.repeat(n_rv, 1),), (eye.repeat_interleave(n, dim=0),))
     computed = computed[:n]
     h_rv = cols.reshape(n_rv, n, -1).permute(1, 2, 0)
@@ -173,6 +200,34 @@ def observe_rows(t_tdb, rv_t, rv_tm, lat, lon, hgt, lt, tint, frame, types):
         computed = torch.where(two, 0.5 * (v0 + v1), v1)
         h_rv = torch.where(two[:, :, None], 0.5 * (h1 + h0_back), h1)
     return computed, torch.cat([h_rv, torch.zeros_like(h_rv[:, :, :STATE_DIM - n_rv])], dim=-1)
+
+
+def observe_rows(t_tdb, rv_t, rv_tm, lat, lon, hgt, lt, tint, frame, types, offset=None):
+    """`_observe_folded` for stations given per row (lat, lon, hgt [M]; lt
+    [M], > 0 for a light-time-corrected station, or None for none; tint
+    [M]). `offset`, if given, is (trk [M], ts [D, K], ys [D, K, 6]): each
+    row's station's centre-offset table (`stack_tables`), whose state at
+    each end's time is added to the spacecraft's before the geometry."""
+
+    def geometry(t, r):
+        off = None if offset is None else table_state_rows(t, offset[0][r], offset[1], offset[2])
+        return station_geometry(t, lat[r], lon[r], hgt[r], frame) + (
+            None if lt is None else lt[r], off)
+
+    def obs(x, r_st, v_st, sez, lt_r, off):
+        return observe(x if off is None else x + off, r_st, v_st, sez, types, lt=lt_r)
+
+    return _observe_folded(t_tdb, rv_t, rv_tm, tint, geometry, obs)
+
+
+def interlink_rows(t_tdb, rv_t, rv_tm, trk, tint, ts_tab, ys_tab, types):
+    """`_observe_folded` for interlink transmitters: row m's transmitter
+    state from table trk[m] of the stacked tables (ts [D, K], ys [D, K, 6])
+    at each end's time."""
+    return _observe_folded(
+        t_tdb, rv_t, rv_tm, tint,
+        lambda t, r: (table_state_rows(t, trk[r], ts_tab, ys_tab),),
+        lambda x, tx: link_observe(x, tx, types))
 
 
 def filter_scan(phi, q_all, h_all, z_all, r_all, avail, p0, rej_thresh: float, gate: bool):
@@ -316,7 +371,7 @@ def filter_scan_f32(phi, q_all, h_all, z_all, r_all, avail, p0, rej_thresh: floa
 
 
 class ScanKalmanOD:
-    """The staged batched filters over a fixed station set and type tuple,
+    """The staged batched filters over a fixed device set and type tuple,
     on `device` (the card unless the caller asks for the CPU).
 
     `variant`: "ckf" (one linearization, or `iterations` Gauss-Newton
@@ -332,7 +387,7 @@ class ScanKalmanOD:
     def __init__(
         self,
         prop,
-        devices: Sequence[GroundStation],
+        devices: Sequence,
         types: Optional[Tuple[str, ...]] = None,
         variant: str = "ckf",
         process_noise=None,
@@ -350,10 +405,19 @@ class ScanKalmanOD:
             raise ConfigError(f"variant must be 'ckf' or 'ekf', got {variant!r}")
         if filter_algebra not in ("f64", "f32"):
             raise ConfigError("filter_algebra must be 'f64' or 'f32'")
-        if not devices or not all(isinstance(d, GroundStation) for d in devices):
-            raise ConfigError("the port's scan filter takes ground stations only")
-        if len({d.frame for d in devices}) != 1:
+        if not devices:
+            raise ConfigError("the scan filter needs at least one device")
+        # device family: ground stations or interlink transmitters
+        is_link = [is_interlink(d) for d in devices]
+        self._interlink = all(is_link)
+        if any(is_link) and not self._interlink:
+            raise ConfigError(
+                "scan filter devices must be all ground stations or all interlink transmitters")
+        if not self._interlink and len({d.frame for d in devices}) != 1:
             raise ConfigError("all scan-filter stations must share a frame")
+        offs = [getattr(d, "target_center_offset", None) for d in devices]
+        if any(o is not None for o in offs) and not all(o is not None for o in offs):
+            raise ConfigError("scan-filter stations must all have a target frame offset, or none")
         self.prop = prop
         self.devices = list(devices)
         self.types = tuple(types or devices[0].measurement_types)
@@ -375,12 +439,22 @@ class ScanKalmanOD:
         self._max_gap_user = max_gap_s
         self.max_gap_s = None if max_gap_s is None else float(max_gap_s)
         self._dyn_stm = self._stm_dynamics(prop.dynamics)
-        self.station_frame = devices[0].frame
         f64 = dict(dtype=torch.float64, device=self.device)
-        self._lat = torch.tensor([d.latitude_deg for d in devices], **f64)
-        self._lon = torch.tensor([d.longitude_deg for d in devices], **f64)
-        self._hgt = torch.tensor([d.height_km for d in devices], **f64)
-        lt = [1.0 if d.light_time_correction else 0.0 for d in devices]
+        # per-device tables, gathered by tracker index on the device: the
+        # transmitters' trajectories, or the stations' geodetic coordinates
+        # and centre offsets
+        self._tx_tab = self._off_tab = None
+        if self._interlink:
+            self.station_frame = None
+            self._tx_tab = stack_tables([d.dev_traj for d in devices], self.device)
+        else:
+            self.station_frame = devices[0].frame
+            self._lat = torch.tensor([d.latitude_deg for d in devices], **f64)
+            self._lon = torch.tensor([d.longitude_deg for d in devices], **f64)
+            self._hgt = torch.tensor([d.height_km for d in devices], **f64)
+            if offs[0] is not None:
+                self._off_tab = stack_tables(offs, self.device)
+        lt = [1.0 if getattr(d, "light_time_correction", False) else 0.0 for d in devices]
         self._lt = torch.tensor(lt, **f64) if any(lt) else None
         # two-way integration times (0 for one-way stations)
         self._tint_np = np.array([float(d.integration_time_s or 0.0) for d in devices])
@@ -596,10 +670,15 @@ class ScanKalmanOD:
         y_tm = None
         if self._any_two_way:
             y_tm = interp_quintic(*nodes, torch.clamp(t_rel - self._tint[trk], min=0.0))[:, :6]
-        computed, h_all = observe_rows(
-            epoch0.to_tdb_seconds() + t_rel, y_bar[:, :6], y_tm, self._lat[trk], self._lon[trk],
-            self._hgt[trk], None if self._lt is None else self._lt[trk], self._tint[trk],
-            self.station_frame, self.types)
+        t_tdb, tint = epoch0.to_tdb_seconds() + t_rel, self._tint[trk]
+        if self._interlink:
+            computed, h_all = interlink_rows(t_tdb, y_bar[:, :6], y_tm, trk, tint, *self._tx_tab,
+                                             self.types)
+        else:
+            computed, h_all = observe_rows(
+                t_tdb, y_bar[:, :6], y_tm, self._lat[trk], self._lon[trk], self._hgt[trk],
+                None if self._lt is None else self._lt[trk], tint, self.station_frame, self.types,
+                offset=None if self._off_tab is None else (trk,) + self._off_tab)
         z_all = torch.where(avail, obs - computed, torch.zeros_like(obs))
         r_all = torch.where(avail, self._rvar[trk], torch.full_like(obs, MASKED_R))
         t_tai = epoch0.to_tai_seconds() + t_rel

@@ -156,6 +156,10 @@ class Epoch:
     def from_gregorian_utc(cls, y, mo, d, h=0, mi=0, s=0.0) -> "Epoch":
         return cls.from_gregorian(y, mo, d, h, mi, s, "UTC")
 
+    @classmethod
+    def from_gregorian_tai(cls, y, mo, d, h=0, mi=0, s=0.0) -> "Epoch":
+        return cls.from_gregorian(y, mo, d, h, mi, s, "TAI")
+
     _ISO_RE = re.compile(
         r"^(\d{4})-(\d{2})-(\d{2})[T ](\d{2}):(\d{2}):(\d{2}(?:\.\d+)?)"
         r"\s*(UTC|TAI|TT|TDB|GPS|Z)?$"
