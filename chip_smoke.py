@@ -38,7 +38,7 @@ raises and exits non-zero:
    same stations two-way (60 s integration), simulated by
    `TrackingArcSim`, and the segmented EKF (`variant="ekf"`, SNC, 3-sigma
    gate, stm_jvp_degree 8, f32 algebra) from a dispersed start, after a
-   1-hour warm-up arc, timed over the arc's first 12 h with its kernel launches
+   1-hour warm-up arc, timed over the arc's first 6 h with its kernel launches
    counted; the bench's 100 m guard; the warm-up arc again through the
    gravity twin (every row within 1e-3 km of the warm-up's) and with f64
    algebra (TestF32FilterAlgebra's bounds, the same rejections);
@@ -48,7 +48,7 @@ raises and exits non-zero:
    4,435 s thruster under the eclipse-gated Ruggiero law, RK89 at 1e-10
    with a 30 s floor, over 6 h of its 30 days, after a 600 s warm-up, with
    its kernel launches counted and one EOM call's CUDA launches profiled;
-   then 4 of its lanes over the first 2 h through the kernel and the twin
+   then 4 of its lanes over the first hour through the kernel and the twin
    (final positions within 1e-6 km, the same final modes);
 6e. Config 1 of BASELINE.md, one spacecraft (examples/01_orbit_prop.py:
    50-93): (a) the example's scene (LEO, 21x21 JGM3 at f64, Sun and Moon,
@@ -85,9 +85,10 @@ raises and exits non-zero:
    (examples/02_jwst_covar_monte_carlo.py:39-163), at full width: the
    180,000 km, e = 0.7 orbit with Sun and Moon point masses and SRP with
    the Earth's and the Moon's shadows, RK89 at 1e-12 (no field, so no
-   kernel launch); (a) `ScanKalmanOD.predict_for` over 6.5 days at 60 s
-   (9,360 estimates), timed, the covariance symmetric and PSD; (b) the
-   5,000-lane `run_until_epoch` with 256 capture nodes over the 6.5 days
+   kernel launch), over the first 2 of its 6.5 days; (a)
+   `ScanKalmanOD.predict_for` at 60 s (2,880 estimates), timed, the
+   covariance symmetric and PSD; (b) the
+   5,000-lane `run_until_epoch` with 256 capture nodes over the 2 days
    after a 300 s warm-up, timed (5,000/5,000 ok, sample 0 the initial
    state, the MC over mapped position-sigma ratio within [0.95, 1.05]);
    (c) `to_parquet` of the finals and of every node, read back; (d) the
@@ -105,8 +106,8 @@ raises and exits non-zero:
    in two-body, then under 21x21 JGM3 split at 1e-10 through the kernel
    (launches counted, no twin primal call on CUDA), and the sma target by
    FD again with the twin forced, and the dual's first Newton iteration
-   through the kernel and the twin (the same Newton iterations,
-   corrections within 1e-12 km/s);
+   towards the same sma a quarter orbit later through the kernel and the
+   twin (the same Newton iterations, corrections within 1e-12 km/s);
    (b) finite-burn targeting (`thrust_dir`, `thrust_dir_rate`) and
    `convert_impulsive_mnvr`, each maneuver flown again and held to the
    rocket equation; (c) the 3-node minimum-fuel multiple shooting; (d) the
@@ -124,7 +125,7 @@ raises and exits non-zero:
    reference run and three parquets, held to the port's CPU counts and
    error and to the reference's 167.76 m; no field, so no kernel launch;
    (b) ex06 (examples/06_lunar_od.py:90-290), Earth-tracked lunar OD over
-   the first hour of its 2 days: the 50x50 lunar field at split precision
+   the first 36 min of its 2 days: the 50x50 lunar field at split precision
    through the kernel with Earth, Sun and Jupiter point masses and SRP,
    three DSN stations saved to YAML, read back and given centre-offset
    tables to the Moon, a tracking YAML, the zero-noise cross-body CKF over
@@ -133,6 +134,24 @@ raises and exits non-zero:
    start, timed, with its kernel launches (no twin primal call on CUDA),
    its final error under half the initial one; and the truth's first
    600 s through the kernel and the twin (within 1e-9 km);
+6j. ex03's remainder (examples/03_geo_analysis.py), printed as "ex03
+   phase": (a) the GEO drift bench (:54-116; 21x21 split, Sun and Moon,
+   SRP with the Earth's and the Moon's shadows, RK89 at 1e-9, B = 1), a
+   600 s warm-up, then one day of the published 1,095 through the kernel,
+   timed, in propagated days a minute beside the reference's 560; (b) the
+   GTO raise (:119-212; 8x8 f64, the eclipse-gated Ruggiero law) over its
+   first 6 h of up to 180 days, held to the port's CPU run; (c) the
+   eclipse scan (:214-228) over a two-body day from (b)'s end, against
+   the CPU on the same trajectory; (d) raise_optim's first generation
+   (:353-530) at P = 20 over 6 h of 60 days, two lanes rerun alone;
+6k. the OD host loop, printed as "Host OD phase": ex06's host branch
+   (examples/06_lunar_od.py:235-245, `KalmanODProcess`, one measurement
+   at a time) on 6i's scene over the arc's first half hour (the rows of
+   6i's zero-noise CKF), through the kernel, held to the scan EKF's counts
+   and its estimate at the same row (1.1 times the reference's own two
+   filters' gap on this scene, 5.2e-3 km) and to the same loop run on the
+   CPU on the same rows (1e-6 km), with a lower bound on a row's CUDA
+   kernels from two profiles, then the smoother and the statistics;
 7. print the command time and the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
@@ -182,10 +201,11 @@ TWIN_PREFIX_S = 3600.0
 SECONDS_70X70 = 900.0
 # The OD legs' warm-up arc, whose rows the twin and f64 reruns repeat (2 h
 # until Config 3's phase needed the time), and the flagship leg's timed arc,
-# the first 12 h of its day (the whole day until then; it took 57-142 s on
-# NVIDIA H100 80GB HBM3 cards at 700 W).
+# the first 6 h of its day (the whole day until Config 3's phase needed the
+# time, 57-142 s on NVIDIA H100 80GB HBM3 cards at 700 W; 12 h until the ex03
+# and host-OD phases did).
 OD_WARM_S = 3600.0
-FLAGSHIP_SECONDS = 43_200.0
+FLAGSHIP_SECONDS = 21_600.0
 # Config 4's station keeping (examples/03_geo_analysis.py:248-350): its 25
 # lanes over 6 h of the 30 days (one day until Config 3's phase needed the
 # time, 8 h until mission design's did; the day took 95-169 s on NVIDIA
@@ -197,8 +217,8 @@ B_SK = 25
 B_SK_TWIN = 4
 SK_SECONDS = 6 * 3600.0
 # its kernel-vs-twin rerun's prefix (6 h until Config 5's phase needed the
-# time, 4 h until Config 3's did)
-SK_TWIN_PREFIX_S = 2 * 3600.0
+# time, 4 h until Config 3's did, 2 h until the ex03 and host-OD phases did)
+SK_TWIN_PREFIX_S = 3600.0
 SK_THRUST_N = 0.472
 SK_ISP_S = 4435.0
 # Config 4's kernel-vs-twin bound over the 6 h prefix, km. At GEO the
@@ -253,15 +273,16 @@ EX04_MU = 4902.800066
 EX04_HOURS = 1.0
 EX04_POSTFIT_RMS_KM = 5e-3
 EX04_TWIN_PREFIX_S = 600.0
-# Config 3 (examples/02_jwst_covar_monte_carlo.py): its 5,000 lanes over its
-# 6.5 days with 256 capture nodes (every step of the ~216); the window of the
+# Config 3 (examples/02_jwst_covar_monte_carlo.py): its 5,000 lanes over the
+# first 2 days of its 6.5 (the whole 6.5 days until the ex03 and host-OD
+# phases needed the time) with 256 capture nodes (every step); the window of the
 # Monte Carlo's position sigmas over the mapped ones (the example's own run
 # gave 0.99; the sampling error at N = 5,000 is ~1 %); and the Encke bounds:
 # the deviation lanes against the full state, km (tests/test_torch_config3.py's
 # own, 2e-3 km, where it measures 2.9e-6 km over ex02's first day at B = 8),
 # and the kernel's Encke against the twin's.
 EX02_B = 5_000
-EX02_DAYS = 6.5
+EX02_DAYS = 2.0
 EX02_N_CAPTURE = 256
 EX02_RATIO = (0.95, 1.05)
 ENCKE_FULL_TOL_KM = 2e-3
@@ -317,11 +338,13 @@ EX05_CPU_TOL_M = 1.0
 EX05_REFERENCE_ERROR_M = 167.76
 EX05_REFERENCE_TOL_M = 5.0
 # ex06 (examples/06_lunar_od.py): its 50x50 field at split precision, over
-# the first hour of its 2 days; the zero-noise cross-body CKF's span (the
-# arc's first half hour) and its range prefit bound, km (tests/test_od.py:
-# 1940-1945); and the twin witness's prefix.
+# the first 36 min of its 2 days (the first hour until the ex03 and host-OD
+# phases needed the time; the arc's first half hour, 6k's rows, is the same
+# either way); the zero-noise cross-body CKF's span (the arc's first half
+# hour) and its range prefit bound, km (tests/test_od.py:1940-1945); and the
+# twin witness's prefix.
 EX06_DEGREE = 50
-EX06_HOURS = 1.0
+EX06_HOURS = 0.6
 EX06_CKF_S = 1800.0
 EX06_PREFIT_KM = 1e-4
 EX06_TWIN_PREFIX_S = 600.0
@@ -331,6 +354,58 @@ EX06_TWIN_PREFIX_S = 600.0
 EX06_SEGMENT_ROWS = 8
 B_EX06_STM = 9 * EX06_SEGMENT_ROWS
 EX06_RADII_KM = (1_883.4, 1_891.4)
+# ex03 (examples/03_geo_analysis.py), phase 6j. (a) The drift bench's
+# warm-up and timed arc (the published arc is 1,095 days, at the
+# reference's ~560 propagated days a minute); (b) the GTO raise over its
+# first 6 h of up to 180 days, held to the port's CPU run of the same arc
+# (chip_smoke.phase_geo_ex03 on the CPU): the signs of its changes of sma,
+# eccentricity and propellant (near perigee the 8x8 field's short-period
+# terms outweigh 6 h of thrust in the osculating sma), its propellant left
+# within EX03_RAISE_CPU_KG, and its final position within
+# EX03_RAISE_CPU_KM. The raise is not continuous in its start: the steering
+# switches and drives RK89 to its 1 s floor ~1,550 s in, so a 1e-12 change
+# of the start moves the final position by 0.07-0.15 km on the CPU (8
+# draws; the reference's own runs 0.034 km apart under a 1e-12 km change,
+# and 0.096 km from the port's), while the propellant stays equal to the
+# bit; the bound is ~3x that spread; (c) the eclipse scan's step, the
+# card's percentages against the CPU's on the same trajectory and its
+# events' epochs, s; (d) raise_optim's generation: P lanes over 6 h of the
+# published 60 days, two of them rerun alone, their propellant within
+# EX03_OPTIM_RERUN_KG.
+EX03_DRIFT_WARM_S = 600.0
+EX03_DRIFT_DAYS = 1.0
+EX03_DRIFT_REFERENCE_DAYS_PER_MIN = 560.0
+EX03_RAISE_S = 6 * 3600.0
+EX03_RAISE_CPU_R_KM = (-41_338.2760638242, -4_240.682234843085, -520.0874626855089)
+EX03_RAISE_CPU_V_KM_S = (0.5920016422799954, -1.5759198714402383, -0.1936940711950485)
+EX03_RAISE_CPU_PROP_KG = 999.8307018169245
+EX03_RAISE_CPU_DSMA_KM = -68.56169088665047
+EX03_RAISE_CPU_DECC = -0.0018255474702411068
+EX03_RAISE_CPU_USED_KG = 0.1692981830755116
+EX03_RAISE_CPU_KM = 0.5
+EX03_RAISE_CPU_KG = 1e-9
+EX03_ECLIPSE_STEP_S = 300.0
+EX03_ECLIPSE_PCT_TOL = 1e-9
+EX03_ECLIPSE_EVENT_S = 1e-3
+EX03_OPTIM_P = 20
+EX03_OPTIM_S = 6 * 3600.0
+EX03_OPTIM_RERUN_LANES = (0, 1)
+EX03_OPTIM_RERUN_KG = 1e-9
+# ex06's host loop (examples/06_lunar_od.py:235-245), phase 6k: the rows of
+# the arc's first EX06_CKF_S (those of 6i's zero-noise CKF); the host loop's
+# bound against the scan EKF at the same row, km: 1.1 times the reference's
+# own two filters' gap on this scene (devtools/ex06_filter_gap.py 50:
+# 4.728e-3 km after the 31 rows, on the CPU; at degree 8 both packages part
+# by 2.0e-4 km, inside the 1e-3 km of tests/test_od.py:435). The whole
+# 50x50 field enters the host loop's STM and only degree 8 the scan EKF's
+# (stm_jvp_degree), and the dispersed start (500 m, 5 mm/s) is 36 m from
+# the truth after the rows.
+EX06_HOST_SCAN_KM = 1.1 * 4.728e-3
+# the host loop's twin witness: the rows of its first EX06_HOST_TWIN_S
+EX06_HOST_TWIN_S = 180.0
+# the card's final estimate against the port's host loop on the CPU, run
+# on the same rows from the same start, km
+EX06_HOST_CPU_KM = 1e-6
 # f32 against f64 filter algebra (tests/test_od.py:1782-1792): positions
 # (km) and sigmas (relative).
 OD_F32_POS_KM = 2e-3
@@ -790,6 +865,18 @@ def ex06_scene(stor, precision: str = "split", *, yaml_dir, device="cuda"):
     return SimpleNamespace(epoch=epoch, orbit=orbit, orbiter=orbiter, propagator=propagator, almanac=alm,
                            devices=devices, configs=configs, stations=stations, unc=unc, est0=est0,
                            dispersed=dispersed, snc=snc, od=od)
+
+
+def ex06_host_od(scene, backend="auto", *, device="cuda"):
+    """examples/06_lunar_od.py:235-245, the example's host branch
+    (NYX_EX06_HOST) through the port: the per-measurement `KalmanODProcess`
+    on `scene`'s propagator (`ex06_scene`), the EKF with its SNC and the
+    3-sigma gate, on `device`. Its STM takes the whole field's partials;
+    the scan EKF's take the field cut to degree 8 (`stm_jvp_degree`)."""
+    from nyx_tpu_torch.od import KalmanODProcess, KalmanVariant
+
+    return KalmanODProcess(scene.propagator(backend), (scene.snc,), KalmanVariant.ReferenceUpdate,
+                           resid_rejection_sigmas=3.0, almanac=scene.almanac, device=device)
 
 
 def _parent_gravity(root: Path):
@@ -1563,10 +1650,10 @@ def phase_config5(gp, device="cuda"):
 
 def phase_config3(gp, leo, kernel64, device="cuda"):
     """Config 3 on `device` (the card; "cpu" rehearses it): ex02's scene at
-    full width. (a) `predict_for` over its 6.5 days at 60 s (9,360
-    estimates), timed, the final covariance symmetric and PSD; (b) the
-    5,000-lane full-state Monte Carlo with 256 capture nodes over the 6.5
-    days after a 300 s warm-up, timed (5,000/5,000 ok, no kernel launch:
+    full width, over the first EX02_DAYS of its 6.5 days. (a) `predict_for`
+    at 60 s (2,880 estimates), timed, the final covariance symmetric and
+    PSD; (b) the 5,000-lane full-state Monte Carlo with 256 capture nodes
+    after a 300 s warm-up, timed (5,000/5,000 ok, no kernel launch:
     ex02's dynamics hold no field; sample 0 the initial state; the MC over
     mapped position-sigma ratio in EX02_RATIO); (c) `to_parquet` of the
     finals and of every node, read back; (d) ex02's Encke mode (ABM, dt
@@ -1828,8 +1915,8 @@ def phase_mission_design(gp, stor21, device="cuda"):
         target; in two-body (RK89 at 1e-12), then under the 21x21 JGM3
         split field at 1e-10 through the kernel (its launches counted from
         0, no twin primal call on CUDA), then the FD solve again with
-        backend="torch", and the dual's first Newton iteration through
-        both;
+        backend="torch", and the dual's first Newton iteration towards
+        the same sma a quarter orbit later through both;
     (b) finite-burn targeting, `thrust_dir` and `thrust_dir_rate`
         (:184-262), each maneuver flown again and held to the rocket
         equation, and `convert_impulsive_mnvr` (:263-303) against the
@@ -1892,13 +1979,15 @@ def phase_mission_design(gp, stor21, device="cuda"):
     d_twin = max(float(np.abs(akern[k][0].correction - atwin[k][0].correction).max()) for k in atwin)
     same_iters = all(akern[k][0].iterations == atwin[k][0].iterations for k in atwin)
     # the dual's twin witness: its first Newton iteration through the kernel
-    # and through the twin (the whole solve through the twin, 53.7-90.8 s,
-    # until the tracking phase needed the time)
+    # and through the twin, towards the same sma a quarter orbit later (the
+    # whole solve through the twin, 53.7-90.8 s, until the tracking phase
+    # needed the time; half an orbit later until the host loop's CPU run
+    # did)
     sma_obj = [Objective.within_tolerance("sma", 8000.0, 1e-3)]
-    half = epoch + leo.orbit.period_s / 2.0
+    quarter = epoch + leo.orbit.period_s / 4.0
     t0 = time.perf_counter()
     first = {b: Targeter.delta_v(split_prop(b), sma_obj, iterations=1).try_achieve_dual(
-        leo, epoch, half, device=device) for b in ("auto", "torch")}
+        leo, epoch, quarter, device=device) for b in ("auto", "torch")}
     sync()
     d_first = float(np.abs(first["auto"].correction - first["torch"].correction).max())
     _log(f"  21x21 split dual's first Newton iteration through the kernel and the twin "
@@ -2296,7 +2385,340 @@ def _tracking_od(gp, device, out_dir):
         raise RuntimeError(f"ex06: kernel and twin truths differ by {d_twin} km")
     _log(f"Tracking phase: {time.perf_counter() - t_phase:.1f} s")
     return dict(ex05_rows_per_s=ex05_rate, ex06_rows_per_s=ex06_rate, launches_ex06=launches,
-                launches_ex06_truth=truth_launches, ex06_truth_ms_per_iter=ex06_ms)
+                launches_ex06_truth=truth_launches, ex06_truth_ms_per_iter=ex06_ms, scene=scene,
+                stations=stations, arc=arc, sol=sol, traj=traj)
+
+
+def ex03_scenes(stor21, stor8, stor4):
+    """examples/03_geo_analysis.py through the port's own names: (a) the
+    drift bench (:54-116), 2,000 kg at GEO (42,164 km, 0.05 deg,
+    2024-03-01) with 16 m^2 of SRP and drag area, the 21x21 field at split
+    precision, Sun and Moon point masses and SRP with the Earth's and the
+    Moon's shadows, RK89 at 1e-9 (0.1-2,700 s); (b) the GTO raise
+    (:119-212), 1,000 kg dry and 1,000 kg of propellant on a 24,505.9 km,
+    e 0.725, 7.05 deg orbit, a 0.472 N / 4,435 s thruster under
+    `Ruggiero.from_max_eclipse(..., 0.2)` toward GEO, the 8x8 field at f64,
+    Moon and Sun, SRP with the Earth's shadow, RK89 at 1e-8 (1-600 s); (d)
+    raise_optim (:353-530), the same spacecraft toward 30,000 km under
+    `Ruggiero.from_ctx_thresholds` (each lane's thresholds from
+    `guidance_params`), the 4x4 field at f64, RK89 at 1e-8 (10-2,700 s),
+    and its first population (rng 7, [P, 3] in [0.1, 1]). The example's
+    TPU knobs (loop_mode="scan", scan_iterations, NYX_MIN_LANES) have no
+    counterpart in the port. Returns a namespace."""
+    from nyx_tpu_torch import Epoch, Frames, Orbit, Spacecraft
+    from nyx_tpu_torch.constants import NAIF
+    from nyx_tpu_torch.cosmic.spacecraft import GuidanceMode, Thruster
+    from nyx_tpu_torch.dynamics import (
+        Harmonics, OrbitalDynamics, PointMasses, Ruggiero, SolarPressure, SpacecraftDynamics,
+    )
+    from nyx_tpu_torch.md.objective import Objective
+    from nyx_tpu_torch.md.param import StateParameter
+    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
+
+    eme = Frames.EME2000
+    drift_epoch = Epoch.from_gregorian_utc(2024, 3, 1)
+    drift_sc = Spacecraft.new(Orbit.keplerian(42_164.0, 1e-4, 0.05, 90.0, 10.0, 0.0, drift_epoch, eme),
+                              2000.0, 0.0, 16.0, 16.0, 1.8, 2.2)
+
+    def drift_propagator(backend="auto"):
+        dyn = SpacecraftDynamics(
+            OrbitalDynamics.from_models((Harmonics.from_stor(stor21, precision="split", backend=backend),
+                                         PointMasses((NAIF.SUN, NAIF.MOON))), eme),
+            (SolarPressure((NAIF.EARTH, NAIF.MOON)),))
+        return Propagator.rk89(dyn, IntegratorOptions.with_adaptive_step(0.1, 2700.0, 1e-9))
+
+    epoch = Epoch.from_gregorian_utc(2024, 2, 29, 12, 13, 14)
+    gto = Spacecraft.from_thruster(Orbit.keplerian(24_505.9, 0.725, 7.05, 0.0, 0.0, 0.0, epoch, eme),
+                                   dry_mass_kg=1000.0, prop_mass_kg=1000.0,
+                                   thruster=Thruster(thrust_N=0.472, isp_s=4435.0),
+                                   mode=GuidanceMode.Thrust).with_srp(18.0, 1.8)
+
+    def objectives(sma_km):
+        return [Objective.within_tolerance(StateParameter.SMA, sma_km, 20.0),
+                Objective.within_tolerance(StateParameter.ECC, 0.001, 5e-5),
+                Objective.within_tolerance(StateParameter.INC, 0.05, 1e-2)]
+
+    raise_law = Ruggiero.from_max_eclipse(objectives(42_165.0), gto, 0.2)
+    raise_prop = Propagator.rk89(
+        SpacecraftDynamics(OrbitalDynamics.from_models((Harmonics.from_stor(stor8),
+                                                        PointMasses((NAIF.MOON, NAIF.SUN))), eme),
+                           (SolarPressure((NAIF.EARTH,)),), raise_law),
+        IntegratorOptions.with_adaptive_step(1.0, 600.0, 1e-8))
+    optim_objectives = objectives(30_000.0)
+    optim_law = Ruggiero.from_ctx_thresholds(optim_objectives, gto)
+    optim_prop = Propagator.rk89(
+        SpacecraftDynamics(OrbitalDynamics.from_models((Harmonics.from_stor(stor4),
+                                                        PointMasses((NAIF.MOON, NAIF.SUN))), eme),
+                           (SolarPressure((NAIF.EARTH,)),), optim_law),
+        IntegratorOptions.with_adaptive_step(10.0, 2700.0, 1e-8))
+    population = np.random.default_rng(7).uniform(0.1, 1.0, size=(EX03_OPTIM_P, 3))
+    return SimpleNamespace(drift_sc=drift_sc, drift_propagator=drift_propagator, gto=gto, raise_prop=raise_prop,
+                           optim_prop=optim_prop, optim_objectives=optim_objectives, population=population,
+                           epoch=epoch)
+
+
+def phase_geo_ex03(gp, stor21, stor8, stor4, device="cuda"):
+    """Phase 6j, ex03's remainder on `device` (the card; "cpu" rehearses
+    it, the twin standing for the kernel): (a) the drift bench, a 600 s
+    warm-up, then one day at B = 1, timed, through the kernel (launches
+    counted, no twin primal call on CUDA), in propagated days a wall
+    minute beside the reference's 560, and the warm-up again through the
+    twin (within 1e-9 km); (b) the GTO raise over its first
+    6 h at B = 1, timed (its f64 field runs no kernel, as the reference
+    sends only float32 evaluations to Pallas), held to the port's CPU run:
+    its final state, and the signs of its changes of sma, eccentricity and
+    propellant; (c) the eclipse scan, a
+    two-body day from (b)'s end, `ShadowModel((EARTH,)).percentages` every
+    300 s and `find_eclipse_events`, each against the CPU on the same
+    trajectory; (d) raise_optim's first generation, P lanes with their
+    own thresholds over 6 h, every lane finished, two lanes rerun alone
+    with their thresholds. Returns the summary's numbers."""
+    from nyx_tpu_torch.constants import NAIF
+    from nyx_tpu_torch.cosmic.eclipse import ShadowModel
+    from nyx_tpu_torch.dynamics import OrbitalDynamics, SpacecraftDynamics
+    from nyx_tpu_torch.ephem import Almanac
+    from nyx_tpu_torch.mc import MonteCarlo, MvnSpacecraft, StateDispersion
+    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
+
+    t_phase = time.perf_counter()
+    sc = ex03_scenes(stor21, stor8, stor4)
+    alm = Almanac()
+    walls = {}
+
+    def reset():
+        gp.pines_accel_cuda.launches = 0
+        gp.pines_accel_torch.cuda_calls = 0
+
+    # (a) the drift bench
+    prop = sc.drift_propagator()
+    warm = prop.with_state(sc.drift_sc, alm, device=device).for_duration(EX03_DRIFT_WARM_S)
+    inst = prop.with_state(sc.drift_sc, alm, device=device)
+    reset()
+    _sync(device)
+    t0 = time.perf_counter()
+    final = inst.for_duration(EX03_DRIFT_DAYS * 86_400.0)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches, twin_calls = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
+    iters = inst.last_result.iterations
+    days_per_min = EX03_DRIFT_DAYS / (wall / 60.0)
+    walls["a"] = time.perf_counter() - t_phase
+    _log(f"ex03 phase ({_card_line()}), (a) the GEO drift bench (21x21 split, Sun and Moon, SRP with the "
+         f"Earth's and the Moon's shadows, RK89 at 1e-9, B = 1) over {EX03_DRIFT_DAYS:g} day of the published "
+         f"1,095: wall {wall:.3f} s, {days_per_min:.3f} propagated days a minute (the reference's "
+         f"{EX03_DRIFT_REFERENCE_DAYS_PER_MIN:g}), integrator iterations {iters}, {1e3 * wall / iters:.3f} ms an "
+         f"iteration; Pines launches {launches}, twin primal calls on CUDA {twin_calls}; final sma "
+         f"{final.orbit.sma_km:.3f} km, ecc {final.orbit.ecc:.6f}")
+    if launches <= 0 or twin_calls != 0 or not np.isfinite(final.to_vector()).all():
+        raise RuntimeError(f"ex03 drift bench: {launches} kernel launches, {twin_calls} twin calls on CUDA")
+    twin = sc.drift_propagator("torch").with_state(sc.drift_sc, alm, device=device).for_duration(EX03_DRIFT_WARM_S)
+    d_twin = float(np.linalg.norm(warm.orbit.r_km - twin.orbit.r_km))
+    _log(f"      twin witness over the warm-up's {EX03_DRIFT_WARM_S:g} s: final positions {d_twin:.3e} km apart")
+    if not d_twin < 1e-9:
+        raise RuntimeError(f"ex03 drift bench: kernel and twin {d_twin} km apart")
+
+    # (b) the GTO raise
+    t_part = time.perf_counter()
+    inst = sc.raise_prop.with_state(sc.gto, alm, device=device)
+    reset()
+    _sync(device)
+    t0 = time.perf_counter()
+    raised = inst.for_duration(EX03_RAISE_S)
+    _sync(device)
+    raise_wall = time.perf_counter() - t0
+    raise_iters = inst.last_result.iterations
+    used = sc.gto.prop_mass_kg - raised.prop_mass_kg
+    d_sma, d_ecc = raised.orbit.sma_km - sc.gto.orbit.sma_km, raised.orbit.ecc - sc.gto.orbit.ecc
+    _log(f"  (b) the GTO raise (8x8 f64, Moon and Sun, SRP, eclipse-gated Ruggiero, RK89 at 1e-8, B = 1) over "
+         f"{EX03_RAISE_S / 3600.0:g} h of up to 180 days: wall {raise_wall:.3f} s, {raise_iters} iterations, "
+         f"{1e3 * raise_wall / raise_iters:.3f} ms an iteration; sma {sc.gto.orbit.sma_km:.3f} -> "
+         f"{raised.orbit.sma_km:.6f} km, ecc {sc.gto.orbit.ecc:.6f} -> {raised.orbit.ecc:.9f}, prop used "
+         f"{used:.9f} kg, mode {raised.mode}; Pines launches {gp.pines_accel_cuda.launches}")
+    if EX03_RAISE_CPU_R_KM is not None and device != "cpu":
+        d_r = float(np.linalg.norm(raised.orbit.r_km - np.array(EX03_RAISE_CPU_R_KM)))
+        d_v = float(np.linalg.norm(raised.orbit.v_km_s - np.array(EX03_RAISE_CPU_V_KM_S)))
+        d_kg = abs(raised.prop_mass_kg - EX03_RAISE_CPU_PROP_KG)
+        _log(f"      against the port's CPU run of the arc: {d_r:.3e} km, {d_v:.3e} km/s, {d_kg:.3e} kg")
+        if not (d_r < EX03_RAISE_CPU_KM and d_kg < EX03_RAISE_CPU_KG):
+            raise RuntimeError(f"ex03 raise: {d_r} km and {d_kg} kg from the CPU run")
+    if EX03_RAISE_CPU_R_KM is not None:
+        signs = (np.sign(d_sma), np.sign(d_ecc)) == (np.sign(EX03_RAISE_CPU_DSMA_KM), np.sign(EX03_RAISE_CPU_DECC))
+        if not (signs and 0.0 < used < 1.0 and np.isfinite(raised.to_vector()).all()):
+            raise RuntimeError(f"ex03 raise: sma {d_sma} km, ecc {d_ecc}, prop used {used} kg; the CPU run moved "
+                               f"them by {EX03_RAISE_CPU_DSMA_KM} km, {EX03_RAISE_CPU_DECC}, "
+                               f"{EX03_RAISE_CPU_USED_KG} kg")
+    walls["b"] = time.perf_counter() - t_part
+
+    # (c) the eclipse scan over a two-body day from the raise's end
+    t_part = time.perf_counter()
+    two_body = Propagator.rk89(SpacecraftDynamics.new(OrbitalDynamics.two_body(sc.gto.frame)), IntegratorOptions())
+    _, traj = two_body.with_state(raised, alm, device=device).for_duration_with_traj(86_400.0)
+    model = ShadowModel((NAIF.EARTH,), alm)
+    _sync(device)
+    t0 = time.perf_counter()
+    ts, pct = model.percentages(traj, step_s=EX03_ECLIPSE_STEP_S, device=device)
+    events = model.find_eclipse_events(traj, step_s=EX03_ECLIPSE_STEP_S, device=device)
+    scan_wall = time.perf_counter() - t0
+    _, pct_cpu = model.percentages(traj, step_s=EX03_ECLIPSE_STEP_S, device="cpu")
+    events_cpu = model.find_eclipse_events(traj, step_s=EX03_ECLIPSE_STEP_S, device="cpu")
+    d_pct = float(np.abs(pct - pct_cpu).max())
+    d_ev = max([abs((a - b).to_seconds()) for (a, _), (b, _) in zip(events, events_cpu)] or [0.0])
+    _log(f"  (c) eclipse scan over a two-body day from (b)'s end ({len(traj)} nodes): {len(ts)} samples every "
+         f"{EX03_ECLIPSE_STEP_S:g} s, {100.0 * float(np.mean(pct > 1e-6)):.2f} % in eclipse, {len(events)} "
+         f"events ({', '.join(f'{k} at {e}' for e, k in events[:4])}) in {scan_wall:.3f} s; against the CPU: "
+         f"percentages {d_pct:.3e}, event epochs {d_ev:.3e} s")
+    if not (d_pct < EX03_ECLIPSE_PCT_TOL and d_ev < EX03_ECLIPSE_EVENT_S
+            and [k for _, k in events] == [k for _, k in events_cpu]):
+        raise RuntimeError(f"ex03 eclipse scan: percentages {d_pct}, events {d_ev} s from the CPU's")
+    walls["c"] = time.perf_counter() - t_part
+
+    # (d) raise_optim's first generation
+    t_part = time.perf_counter()
+    mvn = MvnSpacecraft(sc.gto, [StateDispersion.zero_mean("sma", 0.0)])
+    y0 = np.tile(sc.gto.to_vector(), (EX03_OPTIM_P, 1))
+    end = sc.epoch + EX03_OPTIM_S
+    reset()
+    _sync(device)
+    t0 = time.perf_counter()
+    res = MonteCarlo(mvn, seed=11).run_until_epoch(sc.optim_prop, alm, end, EX03_OPTIM_P, _y0=y0,
+                                                   guidance_params=sc.population, device=device)
+    _sync(device)
+    optim_wall = time.perf_counter() - t0
+    prop_used = sc.gto.prop_mass_kg - res.y_final[:, 8]
+    penalty = np.zeros(EX03_OPTIM_P)
+    for name, idx in (("sma", 0), ("ecc", 1), ("inc", 2)):
+        ok_err = np.array([sc.optim_objectives[idx].assess_raw(float(v)) for v in res.final_values_of(name)])
+        penalty += np.where(ok_err[:, 0] > 0.5, 0.0, np.abs(ok_err[:, 1]))
+    reruns = {}
+    for lane in EX03_OPTIM_RERUN_LANES:
+        one = MonteCarlo(mvn, seed=11).run_until_epoch(sc.optim_prop, alm, end, 1, _y0=y0[lane:lane + 1],
+                                                       guidance_params=sc.population[lane:lane + 1], device=device)
+        reruns[lane] = abs(float(sc.gto.prop_mass_kg - one.y_final[0, 8]) - float(prop_used[lane]))
+    _log(f"  (d) raise_optim's first generation (4x4 f64, per-lane thresholds) at P = {EX03_OPTIM_P} over "
+         f"{EX03_OPTIM_S / 3600.0:g} h of 60 days: wall {optim_wall:.3f} s, {res.iterations} iterations, n_ok "
+         f"{res.n_ok}/{res.n_runs}; prop used {prop_used.min():.6f}-{prop_used.max():.6f} kg, penalty x 1000 "
+         f"{1000.0 * penalty.min():.3f}-{1000.0 * penalty.max():.3f}; B = 1 reruns of lanes "
+         f"{list(reruns)}: prop used within {max(reruns.values()):.3e} kg")
+    if res.n_ok != EX03_OPTIM_P or not (np.isfinite(prop_used).all() and (prop_used > 0.0).all()):
+        raise RuntimeError(f"ex03 raise_optim: {res.n_ok}/{EX03_OPTIM_P} ok, prop used {prop_used}")
+    if not max(reruns.values()) < EX03_OPTIM_RERUN_KG:
+        raise RuntimeError(f"ex03 raise_optim: B = 1 reruns differ by {reruns} kg")
+    walls["d"] = time.perf_counter() - t_part
+    wall_phase = time.perf_counter() - t_phase
+    _log("  walls: " + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()))
+    _log(f"ex03 phase: {wall_phase:.1f} s")
+    return dict(launches_drift=launches, drift_days_per_min=days_per_min, drift_ms_per_iter=1e3 * wall / iters,
+                raised=raised, wall=wall_phase)
+
+
+def _host_row_kernels(od, scene, sol, head, stations, eom_calls, device):
+    """A lower bound on the CUDA kernels of one host-loop row, from two
+    cheap profiles (torch.profiler): the arc's first row, at the start
+    epoch (its observation, H by `jacfwd` and update, no propagation), and
+    one call of the STM EOM at B = 1, times `eom_calls` (the kernel's
+    launches a row: one an EOM call). The integrator's own kernels are
+    left out."""
+    from nyx_tpu_torch.od import TrackingDataArc
+
+    one = TrackingDataArc(head.trackers, head.types, head.epochs_tai_s[:1], head.tracker_idx[:1],
+                          head.values[:1])
+    start = sol.estimates[0]
+    row_k, row_host, row_ops = _kernel_count(lambda: od.process_arc(start, one, stations))
+    dyn = od.prop.dynamics
+    nominal = start.nominal
+    ctx = dyn.build_context(nominal.epoch, 60.0, scene.almanac, device=device)
+    eom = dyn.make_eom(True)
+    y = torch.as_tensor(np.concatenate([nominal.to_vector(), np.eye(9).ravel()])[None], device=device)
+    params = dict(dry_mass_kg=nominal.dry_mass_kg, srp_area_m2=nominal.srp_area_m2,
+                  drag_area_m2=nominal.drag_area_m2)
+    t = torch.zeros(1, dtype=torch.float64, device=device)
+    eom_k, eom_host, eom_ops = _kernel_count(lambda: eom(t, y, ctx, params))
+    total = row_k + eom_calls * eom_k
+    _log(f"  a row's CUDA kernels (torch.profiler): the first row, at the start epoch, {row_k} (its observation "
+         f"and update; {row_ops} top-level aten ops); one STM EOM call at B = 1, {eom_k} ({eom_host} launch "
+         f"calls, {eom_ops} top-level aten ops), {eom_calls:.1f} calls a row: ~{total:,.0f} in the update and the "
+         f"EOM calls alone, a lower bound (the integrator's own kernels besides)")
+    return total
+
+
+def phase_host_od(gp, tracking, device="cuda"):
+    """Phase 6k, the OD host loop on `device` (the card; "cpu" rehearses
+    it) on 6i's ex06 scene (`tracking`, phase_tracking_od's return: the
+    50x50 split field, the Earth stations with their offset tables, the
+    noisy arc and the scan EKF's solution): `ex06_host_od` (the EKF, SNC,
+    the 3-sigma gate) over the arc's first EX06_CKF_S, timed, with its
+    kernel launches; its accepted and rejected counts and its final
+    estimate against the scan EKF's at the same row (EX06_HOST_SCAN_KM)
+    and, on the card, against the same loop run on the CPU on the same rows
+    from the same start (EX06_HOST_CPU_KM); its first rows again through
+    the twin (within 1e-9 km); a lower bound on the CUDA kernels of a row
+    (`_host_row_kernels`, on the card); then `smooth` (timed), `nis_test`
+    and `postfit_rms`. Returns the summary's numbers."""
+    from nyx_tpu_torch.od import MeasurementType
+
+    t_phase = time.perf_counter()
+    scene, stations, arc, scan = tracking["scene"], tracking["stations"], tracking["arc"], tracking["sol"]
+    head = _head(arc, EX06_CKF_S)
+    rows = len(head)
+    od = ex06_host_od(scene, device=device)
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    sol = od.process_arc(scene.est0, head, stations)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches, twin_calls = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
+    rate = rows / wall
+    final = sol.final_estimate.state().to_vector()
+    scan_rej = int(np.sum(np.asarray(scan.rejected)[:rows]))
+    d_scan = float(np.linalg.norm(final[:3] - scan.y_est[rows - 1, :3]))
+    truth = tracking["traj"].at(sol.final_estimate.epoch).to_vector()
+    err_km = float(np.linalg.norm(final[:3] - truth[:3]))
+    _log(f"Host OD phase ({_card_line()}), ex06's host loop (EKF, SNC, 3-sigma gate; the 50x50 split field) "
+         f"over the arc's first {EX06_CKF_S:g} s: {rows} rows in {wall:.3f} s, {rate:.3f} rows/s; "
+         f"{sol.accepted} accepted, {sol.rejected} rejected (the scan EKF: {rows - scan_rej}, {scan_rej}); "
+         f"{len(sol)} estimates; Pines launches {launches}, twin primal calls on CUDA {twin_calls}")
+    _log(f"  final estimate {d_scan:.3e} km from the scan EKF's at row {rows - 1}, {err_km * 1e3:.3f} m from "
+         f"the truth; final position {np.array2string(final[:3], precision=9)} km")
+    if (sol.accepted, sol.rejected) != (rows - scan_rej, scan_rej) or not d_scan < EX06_HOST_SCAN_KM:
+        raise RuntimeError(f"host OD: {sol.accepted}/{sol.rejected} against the scan EKF's "
+                           f"{rows - scan_rej}/{scan_rej}, {d_scan} km apart")
+    if launches <= 0 or twin_calls != 0:
+        raise RuntimeError(f"host OD did not run through the kernel: {launches} launches, "
+                           f"{twin_calls} twin calls on CUDA")
+    if torch.device(device).type == "cuda":
+        t0 = time.perf_counter()
+        cpu = ex06_host_od(scene, device="cpu").process_arc(scene.est0, head, stations)
+        d_cpu = float(np.linalg.norm(final[:3] - cpu.final_estimate.state().to_vector()[:3]))
+        _log(f"  the same loop on the CPU on the same rows ({time.perf_counter() - t0:.1f} s): {cpu.accepted} "
+             f"accepted, {cpu.rejected} rejected; final estimates {d_cpu:.3e} km apart")
+        if (cpu.accepted, cpu.rejected) != (sol.accepted, sol.rejected) or not d_cpu < EX06_HOST_CPU_KM:
+            raise RuntimeError(f"host OD: {d_cpu} km from the CPU run, counts {cpu.accepted}/{cpu.rejected}")
+    # the twin witness: the loop's first rows again through the twin
+    twin = ex06_host_od(scene, "torch", device=device).process_arc(scene.est0, _head(head, EX06_HOST_TWIN_S),
+                                                                  stations)
+    d_twin = float(np.linalg.norm(twin.final_estimate.state().to_vector()[:3]
+                                  - sol.at(twin.final_estimate.epoch)[0].state().to_vector()[:3]))
+    _log(f"  twin witness over the first {twin.accepted + twin.rejected} rows: estimates {d_twin:.3e} km apart")
+    if not d_twin < 1e-9:
+        raise RuntimeError(f"host OD: kernel and twin estimates {d_twin} km apart")
+    kernels = None
+    if torch.device(device).type == "cuda":
+        kernels = _host_row_kernels(od, scene, sol, head, stations, launches / rows, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    smoothed = sol.smooth(devices=stations, device=device)
+    smooth_wall = time.perf_counter() - t0
+    nis = sol.nis_test()
+    rms_m = 1e3 * sol.postfit_rms(MeasurementType.RANGE_KM)
+    _log(f"  smooth: {smooth_wall:.3f} s ({len(smoothed)} estimates); NIS {nis['verdict']} (mean "
+         f"{nis['mean_nis']:.3f}); range postfit RMS {rms_m:.3f} m")
+    if len(smoothed) != len(sol) or not np.isfinite(rms_m):
+        raise RuntimeError("host OD: the smoother or the statistics failed")
+    _log(f"Host OD phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, rows_per_s=rate, kernels_per_row=kernels, smooth_s=smooth_wall,
+                final=final)
 
 
 def main() -> None:
@@ -2411,6 +2833,13 @@ def main() -> None:
     # phase 6i: the tracking side of OD, ex05's crosslink OD and ex06's cross-body lunar OD
     tracking = phase_tracking_od(gp)
 
+    # phase 6j: ex03's drift bench, GTO raise, eclipse scan and raise_optim
+    stor4 = GravityFieldData.from_cof(jgm3, 4, 4, True, Frames.IAU_EARTH)
+    ex03 = phase_geo_ex03(gp, stor21, stor8, stor4)
+
+    # phase 6k: the OD host loop on 6i's ex06 scene
+    host_od = phase_host_od(gp, tracking)
+
     # phase 7: summary
     _log(f"chip_smoke.py command time: {time.perf_counter() - _T_START:.1f} s")
     ms21, bound21, bound_by = k3["times"]["21x21"]
@@ -2465,6 +2894,10 @@ def main() -> None:
         "ex06_truth_ms_per_iter": tracking["ex06_truth_ms_per_iter"],
         "ex05_rows_per_s": tracking["ex05_rows_per_s"],
         "ex06_rows_per_s": tracking["ex06_rows_per_s"],
+        "launches_ex03_drift": ex03["launches_drift"],
+        "ex03_drift_days_per_min": ex03["drift_days_per_min"],
+        "launches_host_od": host_od["launches"],
+        "host_od_rows_per_s": host_od["rows_per_s"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

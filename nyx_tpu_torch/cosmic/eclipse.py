@@ -3,15 +3,24 @@
 Fraction of the solar disk occulted by one or more shadow bodies, from the
 overlap of apparent disks. Batched, at the dtype of the inputs; branches are
 selected on masked inputs so every branch stays finite.
+
+`ShadowModel` queries a trajectory for eclipses: `compute`, the state of one
+orbit, on the host; `percentages`, the occulted fraction at a regular grid
+of the trajectory's samples, batched on a device from one Chebyshev table of
+the Sun and the shadow bodies; and `find_eclipse_events`, the entries and
+exits, each bisected 30 times on the trajectory's interpolant. Where no
+almanac is given the port's own analytic `Almanac` serves (the reference
+falls back to SPK files, which the port does not read yet).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from ..constants import MeanRadius
+from ..constants import NAIF, RADIUS_BY_NAIF, MeanRadius
 from ..xmath import norm as _norm
 
 
@@ -80,3 +89,104 @@ def illumination_factor(r_sc_to_sun, occulters):
     for r_occ, radius in occulters:
         occ = torch.maximum(occ, occultation_percentage(r_sc_to_sun, r_occ, radius))
     return 1.0 - occ
+
+
+class EclipseState:
+    """An occultation: the occulted fraction of the Sun's disk in [0, 1]."""
+
+    def __init__(self, percentage: float):
+        self.percentage = float(percentage)
+
+    @property
+    def is_umbra(self) -> bool:
+        return self.percentage >= 1.0 - 1e-9
+
+    @property
+    def is_penumbra(self) -> bool:
+        return 0.0 < self.percentage < 1.0
+
+    @property
+    def is_visible(self) -> bool:
+        return self.percentage <= 1e-9
+
+    def __str__(self):
+        if self.is_umbra:
+            return "Umbra"
+        if self.is_visible:
+            return "Visibilis"
+        return f"Penumbra {self.percentage * 100:.2f}%"
+
+
+class ShadowModel:
+    """The largest occultation over a list of shadow bodies (NAIF ids)."""
+
+    def __init__(self, shadow_bodies, almanac=None):
+        self.shadow_bodies = tuple(shadow_bodies)
+        self.almanac = almanac
+
+    @classmethod
+    def cislunar(cls, almanac=None) -> "ShadowModel":
+        return cls((NAIF.EARTH, NAIF.MOON), almanac)
+
+    def _almanac(self):
+        if self.almanac is None:
+            from ..ephem.almanac import Almanac
+
+            self.almanac = Almanac()
+        return self.almanac
+
+    def compute(self, orbit, almanac=None) -> EclipseState:
+        """The eclipse state of one Orbit, on the host (float64 on the CPU)."""
+        alm = almanac or self._almanac()
+        center = orbit.frame.center
+        t_tdb = orbit.epoch.to_tdb_seconds()
+        r = np.asarray(orbit.r_km, dtype=np.float64)
+        r_sun = torch.from_numpy(alm.position(NAIF.SUN, center, t_tdb) - r)
+        pct = 0.0
+        for body in self.shadow_bodies:
+            r_occ = -r if body == center else alm.position(body, center, t_tdb) - r
+            pct = max(pct, float(occultation_percentage(r_sun, torch.from_numpy(r_occ),
+                                                        RADIUS_BY_NAIF[body])))
+        return EclipseState(pct)
+
+    def percentages(self, traj, step_s: float = 60.0, *, device="cuda"):
+        """(seconds past the trajectory's start [K], occulted fraction [K])
+        every `step_s` along `traj`, computed on `device` as numpy."""
+        alm = self._almanac()
+        center = traj.template.frame.center
+        ts = np.arange(float(traj.ts[0]), float(traj.ts[-1]) + 1e-9, step_s)
+        rs = traj.interpolate_many(ts)[:, :3]
+        epoch0 = traj.epoch0
+        table = alm.build_table([NAIF.SUN] + [b for b in self.shadow_bodies if b != center], center,
+                                epoch0 + float(ts[0]), epoch0 + float(ts[-1]), device=device)
+        k = dict(dtype=torch.float64, device=device)
+        r = torch.as_tensor(rs, **k)
+        tt = torch.as_tensor(epoch0.to_tdb_seconds() + ts, **k)
+        r_sun = table.position(table.index_of(NAIF.SUN), tt) - r
+        pct = torch.zeros(len(ts), **k)
+        for body in self.shadow_bodies:
+            r_occ = -r if body == center else table.position(table.index_of(body), tt) - r
+            pct = torch.maximum(pct, occultation_percentage(r_sun, r_occ, RADIUS_BY_NAIF[body]))
+        return ts, pct.cpu().numpy()
+
+    def find_eclipse_events(self, traj, threshold: float = 1e-6, step_s: float = 60.0, *,
+                            device="cuda"):
+        """[(epoch, "entry" or "exit")]: where the occulted fraction crosses
+        `threshold` between two samples of `percentages`, each bisected 30
+        times with `compute` on the trajectory's interpolant."""
+        ts, pct = self.percentages(traj, step_s, device=device)
+        inside = pct > threshold
+        out = []
+        for i in range(len(ts) - 1):
+            if inside[i] == inside[i + 1]:
+                continue
+            lo, hi = ts[i], ts[i + 1]
+            for _ in range(30):
+                mid = 0.5 * (lo + hi)
+                state = traj.template.set_vector(traj.epoch0 + float(mid), traj.interpolate(mid)[:9])
+                if (self.compute(state.orbit).percentage > threshold) == bool(inside[i]):
+                    lo = mid
+                else:
+                    hi = mid
+            out.append((traj.epoch0 + float(0.5 * (lo + hi)), "exit" if inside[i] else "entry"))
+        return out

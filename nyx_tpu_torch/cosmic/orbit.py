@@ -120,10 +120,17 @@ def ecc_to_mean_anomaly(ea, ecc):
 
 def mean_to_ecc_anomaly(ma, ecc, iters: int = 20):
     """Kepler's equation by Newton iteration, a fixed count with no early
-    exit (no host sync): eccentric anomaly for e < 1, hyperbolic for e > 1."""
-    ea = torch.where(ecc < 0.8, ma, torch.full_like(ma, math.pi))
+    exit (no host sync): eccentric anomaly for e < 1, hyperbolic for e > 1.
+    The elliptic branch solves for M reduced to [0, 2 pi) and adds the whole
+    turns back: started at E = pi for e >= 0.8, Newton diverges for M far
+    outside [0, 2 pi] (the reference, nyx_tpu/cosmic/orbit.py:134-150, does
+    not reduce M and fails there)."""
+    two_pi = 2.0 * math.pi
+    m0 = torch.remainder(ma, two_pi)
+    ea = torch.where(ecc < 0.8, m0, torch.full_like(m0, math.pi))
     for _ in range(iters):
-        ea = ea - (ea - ecc * torch.sin(ea) - ma) / (1 - ecc * torch.cos(ea))
+        ea = ea - (ea - ecc * torch.sin(ea) - m0) / (1 - ecc * torch.cos(ea))
+    ea = ea + (ma - m0)
     hh = torch.asinh(ma / torch.clamp(ecc, min=1 + _EPS))
     for _ in range(iters):
         hh = hh - (ecc * torch.sinh(hh) - hh - ma) / (ecc * torch.cosh(hh) - 1)

@@ -79,6 +79,16 @@ class Spacecraft:
         )
 
     @classmethod
+    def from_srp_defaults(cls, orbit, dry_mass_kg, srp_area_m2) -> "Spacecraft":
+        """A spacecraft with SRP area and the default Cr (1.8), no drag area."""
+        return cls(orbit, dry_mass_kg=dry_mass_kg, srp_area_m2=srp_area_m2)
+
+    @classmethod
+    def from_drag_defaults(cls, orbit, dry_mass_kg, drag_area_m2) -> "Spacecraft":
+        """A spacecraft with drag area and the default Cd (2.2), no SRP area."""
+        return cls(orbit, dry_mass_kg=dry_mass_kg, drag_area_m2=drag_area_m2)
+
+    @classmethod
     def from_thruster(
         cls, orbit, dry_mass_kg, prop_mass_kg, thruster, mode=GuidanceMode.Coast
     ) -> "Spacecraft":
@@ -92,6 +102,9 @@ class Spacecraft:
 
     def with_srp(self, srp_area_m2, cr) -> "Spacecraft":
         return replace(self, srp_area_m2=srp_area_m2, cr=cr)
+
+    def with_drag(self, drag_area_m2, cd) -> "Spacecraft":
+        return replace(self, drag_area_m2=drag_area_m2, cd=cd)
 
     def with_dv(self, dv_km_s) -> "Spacecraft":
         """A copy with `dv_km_s` (inertial, km/s) added to the velocity."""

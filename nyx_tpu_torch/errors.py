@@ -66,3 +66,8 @@ class MonteCarloError(NyxError, ValueError):
 class LambertError(NyxError, ValueError):
     """Lambert solver failures: 180-degree geometry, no multi-rev
     solution, iteration limit (errors.rs LambertError)."""
+
+
+class InputOutputError(NyxError, OSError):
+    """File parsing and serialization failures (a TDM's unsupported time
+    scale, path or units)."""

@@ -20,8 +20,10 @@ A station tracks a spacecraft about another body through
 every spacecraft state before the geometry. `require_same_center` refuses a
 device set that cannot observe states about a given body. Also here:
 azimuth-dependent terrain masks (`TerrainMask`), timestamp noise, the
-measurement-type editors, and the YAML `load` / `load_many` /
-`load_named` / `save` (through `io/config.py`).
+measurement-type editors, the YAML `load` / `load_many` / `load_named` /
+`save` (through `io/config.py`), and the single-station geometry that the
+OD host loop calls (`body_fixed_position`, `inertial_posvel`, `sez_state`,
+`measurement_fn`, `measurement_covar`), batched over epochs as the rest.
 """
 
 from __future__ import annotations
@@ -95,13 +97,15 @@ def station_geometry(t_tdb, lat_deg, lon_deg, height_km, frame: Frame):
 def tracked_center(device) -> int:
     """NAIF id of the body whose states `device` observes: a station's
     body, or the target of its centre-offset table; an interlink
-    transmitter's trajectory's centre."""
+    transmitter's trajectory's centre; None for a device without a frame
+    (a GNSS position device observes the state in its own frame)."""
     off = getattr(device, "target_center_offset", None)
     if off is not None:
         return off.center
     if is_interlink(device):
         return device.dev_traj.center
-    return device.frame.center
+    frame = getattr(device, "frame", None)
+    return None if frame is None else frame.center
 
 
 def require_same_center(devices, state_frame: Frame) -> None:
@@ -110,9 +114,10 @@ def require_same_center(devices, state_frame: Frame) -> None:
     position about its own body from the spacecraft state, so a station on
     another body needs `with_target_frame` to that centre."""
     for d in devices:
-        if tracked_center(d) != state_frame.center:
+        center = tracked_center(d)
+        if center is not None and center != state_frame.center:
             raise ConfigError(
-                f"device {d.name} observes states about body {tracked_center(d)} but the spacecraft "
+                f"device {d.name} observes states about body {center} but the spacecraft "
                 f"state is in {state_frame}: give the station with_target_frame to that centre")
 
 
@@ -277,19 +282,61 @@ class GroundStation:
             return rv6
         return rv6 + self.target_center_offset.state_at(t_tdb)
 
-    # ------------------------------------------------------------------
+    # -- geometry ----------------------------------------------------------
+    def body_fixed_position(self, *, device="cuda") -> torch.Tensor:
+        """The station's body-fixed position [3] (km), a float64 tensor on
+        `device`."""
+        k = dict(dtype=torch.float64, device=device)
+        lat, lon, hgt = (torch.tensor(float(x), **k)
+                         for x in (self.latitude_deg, self.longitude_deg, self.height_km))
+        return geodetic_to_body_fixed(lat, lon, hgt, self.frame.radius_km, self.frame.flattening)
+
+    def inertial_posvel(self, t_tdb):
+        """(position [K, 3], velocity [K, 3]) of the station in the J2000
+        frame of its body at TDB epochs t_tdb [K] (a float64 tensor); the
+        velocity is d/dt of the body-fixed rotation by forward mode."""
+        r_st, v_st, _ = self._geometry(t_tdb)
+        return r_st, v_st
+
+    def sez_state(self, t_tdb, rv6):
+        """(rho [K, 3], rho_dot [K, 3]): the topocentric South-East-Zenith
+        position and velocity of states rv6 [K, 6] (J2000, about the
+        trajectory's centre, moved onto the station's body by the offset
+        table if there is one)."""
+        r_st, v_st, sez = self._geometry(t_tdb)
+        rv6 = self._shift_to_station_center(t_tdb, rv6)
+        return apply_dcm(sez, rv6[:, 0:3] - r_st), apply_dcm(sez, rv6[:, 3:6] - v_st)
+
+    def measurement_fn(self, types: Optional[Sequence[str]] = None):
+        """`h(t_tdb [K], rv6 [K, 6]) -> [K, T]`: `measurement_fn_at` at the
+        epochs t_tdb."""
+        return lambda t, rv6: self.measurement_fn_at(t, types)(rv6)
+
+    def measurement_fn_at(self, t_tdb, types: Optional[Sequence[str]] = None):
+        """`h(rv6 [K, 6]) -> [K, T]`: the one-way computed observation of
+        states rv6 [K, 6] (about the trajectory's centre) at the fixed TDB
+        epochs t_tdb [K], backdated by the light time where the station
+        corrects for it; the station's geometry and the offset table are
+        evaluated once, outside whatever transform differentiates h."""
+        types = tuple(types or self.measurement_types)
+        geo = self._geometry(t_tdb)
+        off = None if self.target_center_offset is None else self.target_center_offset.state_at(t_tdb)
+
+        def h(rv6):
+            return observe(rv6 if off is None else rv6 + off, *geo, types, lt=self.light_time_correction)
+
+        return h
+
+    def measurement_covar(self, types: Optional[Sequence[str]] = None) -> np.ndarray:
+        """The diagonal measurement covariance [T, T] of `types`."""
+        types = tuple(types or self.measurement_types)
+        return np.diag([self.stochastic_noises[t].covariance() for t in types])
+
     def _geometry(self, t_tdb):
         k = dict(dtype=torch.float64, device=t_tdb.device)
         lat, lon, hgt = (torch.full(t_tdb.shape, float(x), **k)
                          for x in (self.latitude_deg, self.longitude_deg, self.height_km))
         return station_geometry(t_tdb, lat, lon, hgt, self.frame)
-
-    def _one_way(self, t_tdb, rv6, types):
-        """[K, T] observables at TDB epochs t_tdb [K] of states rv6 [K, 6]
-        (about the trajectory's centre), backdated by the light time if the
-        station corrects for it."""
-        return observe(self._shift_to_station_center(t_tdb, rv6), *self._geometry(t_tdb), types,
-                       lt=self.light_time_correction)
 
     def azimuth_elevation_range(self, t_tdb, rv6):
         """(azimuth_deg, elevation_deg, range_km, range_rate_km_s), each [K],
@@ -303,13 +350,11 @@ class GroundStation:
         """`h2(t_tdb [K], rv6_t [K, 6], rv6_tm [K, 6]) -> [K, T]`: the
         two-way observable, the average of the one-way values at the end
         (t) and the start (t - T_int) of the integration interval."""
-        types = tuple(types or self.measurement_types)
+        h = self.measurement_fn(types)
         t_int = float(self.integration_time_s or 0.0)
 
         def h2(t, rv6_t, rv6_tm):
-            v1 = self._one_way(t, rv6_t, types)
-            v0 = self._one_way(t - t_int, rv6_tm, types)
-            return 0.5 * (v0 + v1)
+            return 0.5 * (h(t - t_int, rv6_tm) + h(t, rv6_t))
 
         return h2
 
@@ -367,7 +412,7 @@ class GroundStation:
         t, y = _on([epoch.to_tdb_seconds()], np.asarray(rv6, dtype=np.float64)[None], device)
         if float(self.azimuth_elevation_range(t, y)[1][0]) < self.elevation_mask_deg:
             return None
-        vals = self._one_way(t, y, self.measurement_types)[0].cpu().numpy()
+        vals = self.measurement_fn()(t, y)[0].cpu().numpy()
         t_tai = epoch.to_tai_seconds()
         out = {}
         for j, mtype in enumerate(self.measurement_types):

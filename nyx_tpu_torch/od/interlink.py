@@ -159,7 +159,7 @@ class InterlinkTxSpacecraft:
             }
 
     def _link_values(self, t_tdb, rv6, types):
-        return link_observe(rv6, self.dev_traj.state_at(t_tdb), types)
+        return self.measurement_fn_at(t_tdb, types)(rv6)
 
     def _los_clear(self, t_tdb, rv6):
         """[K] pseudo-elevations: +90 deg where the segment from the
@@ -176,9 +176,16 @@ class InterlinkTxSpacecraft:
         return torch.where(clear, 90.0, -90.0).to(t_tdb.dtype)
 
     def measurement_fn(self, types=None):
-        """`h(t_tdb [K], rv6 [K, 6]) -> [K, T]`, one way."""
+        """`h(t_tdb [K], rv6 [K, 6]) -> [K, T]`: `measurement_fn_at` at the
+        epochs t_tdb."""
+        return lambda t, rv6: self.measurement_fn_at(t, types)(rv6)
+
+    def measurement_fn_at(self, t_tdb, types=None):
+        """`h(rv6 [K, 6]) -> [K, T]`, one way, at the fixed epochs t_tdb
+        [K], the transmitter's state looked up once."""
         types = tuple(types or self.measurement_types)
-        return lambda t, rv6: self._link_values(t, rv6, types)
+        tx = self.dev_traj.state_at(t_tdb)
+        return lambda rv6: link_observe(rv6, tx, types)
 
     def two_way_fn(self, types=None):
         """`h2(t_tdb [K], rv6_t [K, 6], rv6_tm [K, 6]) -> [K, T]`: the average

@@ -33,6 +33,21 @@ class MeasurementType:
     X_KM = "x_km"
     Y_KM = "y_km"
     Z_KM = "z_km"
+    #: raw radiometric frequencies (Hz, Hz/s): never simulated or filtered;
+    #: the TDM reader turns them into Doppler (`od/tdm.py`)
+    RECEIVE_FREQ_HZ = "receive_freq"
+    TRANSMIT_FREQ_HZ = "transmit_freq"
+    TRANSMIT_FREQ_RATE_HZ_S = "transmit_freq_rate"
+
+    ALL = (RANGE_KM, DOPPLER_KM_S, AZIMUTH_DEG, ELEVATION_DEG, X_KM, Y_KM, Z_KM,
+           RECEIVE_FREQ_HZ, TRANSMIT_FREQ_HZ, TRANSMIT_FREQ_RATE_HZ_S)
+    ANGLES = (AZIMUTH_DEG, ELEVATION_DEG)
+    FREQUENCIES = (RECEIVE_FREQ_HZ, TRANSMIT_FREQ_HZ, TRANSMIT_FREQ_RATE_HZ_S)
+    UNITS = {
+        RANGE_KM: "km", DOPPLER_KM_S: "km/s", AZIMUTH_DEG: "deg", ELEVATION_DEG: "deg",
+        X_KM: "km", Y_KM: "km", Z_KM: "km", RECEIVE_FREQ_HZ: "Hz", TRANSMIT_FREQ_HZ: "Hz",
+        TRANSMIT_FREQ_RATE_HZ_S: "Hz/s",
+    }
 
 
 @dataclass
@@ -42,6 +57,13 @@ class Measurement:
     tracker: str
     epoch: Epoch
     data: Dict[str, float] = field(default_factory=dict)
+
+    def observation(self, types: Sequence[str]) -> np.ndarray:
+        """The values of `types` (NaN where absent)."""
+        return np.array([self.data.get(t, np.nan) for t in types])
+
+    def availability(self, types: Sequence[str]) -> np.ndarray:
+        return np.array([t in self.data for t in types])
 
 
 @dataclass

@@ -205,7 +205,7 @@ def _rows(ref_scene, n=8, seed=11):
 
 def test_light_time_and_two_way_observables_match_reference(ref_scene):
     """(a) The light-time-corrected one-way observables
-    (`GroundStation._one_way`), the two-way ones (`two_way_fn`) and the
+    (`GroundStation.measurement_fn`), the two-way ones (`two_way_fn`) and the
     filter's rows with their H (`observe_rows`: two-way, light time, one
     forward-mode batch) against the reference's `_one_way`, `two_way_fn`
     and `_station_obs(lt=1.0)` with `jax.jacfwd`, one row at a time and
@@ -220,8 +220,8 @@ def test_light_time_and_two_way_observables_match_reference(ref_scene):
         sel = trk == k
         ref_one = np.stack([ref_st[k]._one_way(jnp.float64(t), jnp.asarray(y), ALL_TYPES)
                             for t, y in zip(t_tdb[sel], y_t[sel])])
-        one = st[k]._one_way(torch.tensor(t_tdb[sel], **f64), torch.tensor(y_t[sel], **f64),
-                             ALL_TYPES).numpy()
+        one = st[k].measurement_fn(ALL_TYPES)(torch.tensor(t_tdb[sel], **f64),
+                                              torch.tensor(y_t[sel], **f64)).numpy()
         ref_h2 = ref_st[k].two_way_fn(ALL_TYPES)
         ref_two = np.stack([ref_h2(jnp.float64(t), jnp.asarray(y), jnp.asarray(ym))
                             for t, y, ym in zip(t_tdb[sel], y_t[sel], y_tm[sel])])

@@ -607,11 +607,11 @@ def test_with_target_frame_geometry():
     f64 = dict(dtype=torch.float64)
     rows = torch.tensor(np.repeat(rv6[None], len(t), 0), **f64)
     types = TYPES + (MeasurementType.AZIMUTH_DEG, MeasurementType.ELEVATION_DEG)
-    vals = gs_x._one_way(torch.tensor(t, **f64), rows, types).numpy()
+    vals = gs_x.measurement_fn(types)(torch.tensor(t, **f64), rows).numpy()
     assert (330_000 < vals[:, 0]).all() and (vals[:, 0] < 440_000).all()
     r_m = alm.position(NAIF.MOON, NAIF.EARTH, t)
-    manual = gs._one_way(torch.tensor(t, **f64), torch.tensor(np.concatenate(
-        [orbit.r_km + r_m, np.repeat(orbit.v_km_s[None], len(t), 0)], axis=1), **f64), types).numpy()
+    manual = gs.measurement_fn(types)(torch.tensor(t, **f64), torch.tensor(np.concatenate(
+        [orbit.r_km + r_m, np.repeat(orbit.v_km_s[None], len(t), 0)], axis=1), **f64)).numpy()
     assert np.abs(vals[:, 0] - manual[:, 0]).max() < 1e-3
     ref = np.stack([np.asarray(gs_xr._one_way(jnp.float64(x), jnp.asarray(rv6), types)) for x in t])
     assert _col_rel(vals, ref) < 1e-9
