@@ -152,6 +152,20 @@ raises and exits non-zero:
    filters' gap on this scene, 5.2e-3 km) and to the same loop run on the
    CPU on the same rows (1e-6 km), with a lower bound on a row's CUDA
    kernels from two profiles, then the smoother and the statistics;
+6l. the scan filter's modes on 6b's scene, printed as "Scan modes phase":
+   (a) the associative-scan filter's iterated 4-sigma gate against the
+   sequential scan's, both f64, on the arc's first 6 h with ~3 % of the
+   range rows moved by +5 km (the same rejections, the moved rows among
+   them, final estimates within 1e-6 km); (a') the associative-scan filter
+   over the whole day, timed, its s4 beside 6b's; (b) `process_arc_batch`
+   over 64 estimates at 6b's settings (6b's estimate and 63 draws from its
+   covariance) over the day, timed, member 0 within 1e-9 km of 6b's
+   solution; (c) Gauss-Markov range biases on DSS-65 and DSS-34 over 6 h,
+   estimated as state lanes and recovered within 3 sigma + 1 m; (d)
+   `prop_mode` "fixed" and "adaptive" over the arc's first 8 rows against
+   the batch CKF; (e) the spacecraft and integrator options through TOML,
+   the propagator's Dhall document and the spacecraft through DER; every
+   filter through the kernel;
 7. print the command time and the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
@@ -200,11 +214,12 @@ TWIN_FINAL_TOL_KM = 1e-3
 TWIN_PREFIX_S = 3600.0
 SECONDS_70X70 = 900.0
 # The OD legs' warm-up arc, whose rows the twin and f64 reruns repeat (2 h
-# until Config 3's phase needed the time), and the flagship leg's timed arc,
+# until Config 3's phase needed the time, 1 h until the scan filter's modes
+# did), and the flagship leg's timed arc,
 # the first 6 h of its day (the whole day until Config 3's phase needed the
 # time, 57-142 s on NVIDIA H100 80GB HBM3 cards at 700 W; 12 h until the ex03
 # and host-OD phases did).
-OD_WARM_S = 3600.0
+OD_WARM_S = 1800.0
 FLAGSHIP_SECONDS = 21_600.0
 # Config 4's station keeping (examples/03_geo_analysis.py:248-350): its 25
 # lanes over 6 h of the 30 days (one day until Config 3's phase needed the
@@ -389,7 +404,11 @@ EX03_ECLIPSE_PCT_TOL = 1e-9
 EX03_ECLIPSE_EVENT_S = 1e-3
 EX03_OPTIM_P = 20
 EX03_OPTIM_S = 6 * 3600.0
-EX03_OPTIM_RERUN_LANES = (0, 1)
+# raise_optim's lanes rerun alone at B = 1, each to the bit of its lane in
+# the generation (lanes 0 and 1 until the scan filter's modes needed the
+# time: the two reruns took 56.3-87.4 s on NVIDIA H100 80GB HBM3 cards at
+# 700 W, half of phase 6j)
+EX03_OPTIM_RERUN_LANES = (0,)
 EX03_OPTIM_RERUN_KG = 1e-9
 # ex06's host loop (examples/06_lunar_od.py:235-245), phase 6k: the rows of
 # the arc's first EX06_CKF_S (those of 6i's zero-noise CKF); the host loop's
@@ -403,9 +422,37 @@ EX03_OPTIM_RERUN_KG = 1e-9
 EX06_HOST_SCAN_KM = 1.1 * 4.728e-3
 # the host loop's twin witness: the rows of its first EX06_HOST_TWIN_S
 EX06_HOST_TWIN_S = 180.0
-# the card's final estimate against the port's host loop on the CPU, run
-# on the same rows from the same start, km
+# the port's host loop on the CPU, run from the same start on the card's
+# rows of the arc's first EX06_HOST_CPU_S (its 31 rows over 1,800 s until
+# the scan filter's modes needed the time: 23.7-24.1 s on the CPU), its
+# final estimate against the card's at that row, km
+EX06_HOST_CPU_S = 900.0
 EX06_HOST_CPU_KM = 1e-6
+# Phase 6l, the scan filter's modes on 6b's scene: (a) the parallel filter's
+# gate parity over the arc's first SCAN_GATE_S (~3 % of the range rows moved
+# by +5 km, the scene of tests/test_od.py:652-690), its final estimate within
+# SCAN_PARALLEL_KM of the sequential scan's; (b) the ensemble of
+# SCAN_ENSEMBLE_B filters (member 0 6b's estimate, the others drawn from its
+# covariance at SCAN_ENSEMBLE_SEED), member 0 within SCAN_MEMBER_KM of 6b's
+# solution (the reference's member-vs-solo bound, tests/test_od.py:1364-1368);
+# (c) the bias lanes over SCAN_BIAS_S at SCAN_BIAS_CADENCE_S; (d) the per-row
+# modes over the arc's first SCAN_ROWS rows, each within SCAN_ROW_KM of the
+# port's batch CKF on the same rows: the tests' 1e-6 km, or 1.1 times the
+# reference's own gap between the same modes on this scene where that is
+# larger (`reference_row_gap(8)` of tests/test_torch_scan_modes.py, on the
+# CPU: 7.554e-9 km for both modes; the port's on the CPU 2.03e-8 km). 12
+# rows took 10.8-14.8 s of (d) on NVIDIA H100 80GB HBM3 cards at 700 W,
+# past 6l's 60 s in one run.
+SCAN_GATE_S = 6 * 3600.0
+SCAN_PARALLEL_KM = 1e-6
+SCAN_ENSEMBLE_B = 64
+SCAN_ENSEMBLE_SEED = 12
+SCAN_MEMBER_KM = 1e-9
+SCAN_BIAS_S = 6 * 3600.0
+SCAN_BIAS_CADENCE_S = 120.0
+SCAN_ROWS = 8
+SCAN_REFERENCE_ROW_GAP_KM = 7.553769e-9
+SCAN_ROW_KM = max(1e-6, 1.1 * SCAN_REFERENCE_ROW_GAP_KM)
 # f32 against f64 filter algebra (tests/test_od.py:1782-1792): positions
 # (km) and sigmas (relative).
 OD_F32_POS_KM = 2e-3
@@ -1170,7 +1217,8 @@ def phase_od(gp, stor21):
 
     _f32_vs_f64(f"OD, first {OD_WARM_S:g} s,", warm, od("auto", "f64").process_arc(est0, warm_arc))
     return dict(launches=launches, rows_per_s=rate, rows=len(arc), wall=wall, truth=truth,
-                traj=traj)
+                traj=traj, arc=arc, est0=est0, sol=sol, stations=stations,
+                s4=scan.stage_walls_s["s4"])
 
 
 def phase_od_flagship(gp, stor21, truth, traj):
@@ -2649,9 +2697,10 @@ def phase_host_od(gp, tracking, device="cuda"):
     the 3-sigma gate) over the arc's first EX06_CKF_S, timed, with its
     kernel launches; its accepted and rejected counts and its final
     estimate against the scan EKF's at the same row (EX06_HOST_SCAN_KM)
-    and, on the card, against the same loop run on the CPU on the same rows
-    from the same start (EX06_HOST_CPU_KM); its first rows again through
-    the twin (within 1e-9 km); a lower bound on the CUDA kernels of a row
+    and, on the card, against the same loop run on the CPU from the same
+    start on the card's rows of the first EX06_HOST_CPU_S
+    (EX06_HOST_CPU_KM); its first rows again through the twin (within
+    1e-9 km); a lower bound on the CUDA kernels of a row
     (`_host_row_kernels`, on the card); then `smooth` (timed), `nis_test`
     and `postfit_rms`. Returns the summary's numbers."""
     from nyx_tpu_torch.od import MeasurementType
@@ -2689,11 +2738,17 @@ def phase_host_od(gp, tracking, device="cuda"):
                            f"{twin_calls} twin calls on CUDA")
     if torch.device(device).type == "cuda":
         t0 = time.perf_counter()
-        cpu = ex06_host_od(scene, device="cpu").process_arc(scene.est0, head, stations)
-        d_cpu = float(np.linalg.norm(final[:3] - cpu.final_estimate.state().to_vector()[:3]))
-        _log(f"  the same loop on the CPU on the same rows ({time.perf_counter() - t0:.1f} s): {cpu.accepted} "
-             f"accepted, {cpu.rejected} rejected; final estimates {d_cpu:.3e} km apart")
-        if (cpu.accepted, cpu.rejected) != (sol.accepted, sol.rejected) or not d_cpu < EX06_HOST_CPU_KM:
+        cpu_head = _head(head, EX06_HOST_CPU_S)
+        cpu = ex06_host_od(scene, device="cpu").process_arc(scene.est0, cpu_head, stations)
+        last = cpu.final_estimate.epoch.to_tai_seconds()
+        card = sol.at(cpu.final_estimate.epoch)[0].state().to_vector()
+        card_rej = sum(r.epoch.to_tai_seconds() <= last + 1e-6 for r in sol.rejected_residuals())
+        d_cpu = float(np.linalg.norm(card[:3] - cpu.final_estimate.state().to_vector()[:3]))
+        _log(f"  the same loop on the CPU on the card's first {len(cpu_head)} rows "
+             f"({time.perf_counter() - t0:.1f} s): {cpu.accepted} accepted, {cpu.rejected} rejected (the "
+             f"card: {card_rej} rejected); estimates at the last of them {d_cpu:.3e} km apart")
+        if ((cpu.accepted + cpu.rejected, cpu.rejected) != (len(cpu_head), card_rej)
+                or not d_cpu < EX06_HOST_CPU_KM):
             raise RuntimeError(f"host OD: {d_cpu} km from the CPU run, counts {cpu.accepted}/{cpu.rejected}")
     # the twin witness: the loop's first rows again through the twin
     twin = ex06_host_od(scene, "torch", device=device).process_arc(scene.est0, _head(head, EX06_HOST_TWIN_S),
@@ -2719,6 +2774,248 @@ def phase_host_od(gp, tracking, device="cuda"):
     _log(f"Host OD phase: {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, rows_per_s=rate, kernels_per_row=kernels, smooth_s=smooth_wall,
                 final=final)
+
+
+DHALL_OD_PROPAGATOR = """
+-- the OD leg's propagator: 21x21 JGM3 about the Earth (split precision is
+-- not a Dhall field), RK89 at the default options
+{ accel_models =
+    { gravity_field = Some
+        { _1 = { filepath = "%s", degree = 21, order = 21, gunzipped = True }
+        , _2 = { ephemeris_id = +399, orientation_id = +399 }
+        }
+    , point_masses = None { celestial_objects : List Integer }
+    }
+, force_models = { solar_pressure = None { phi : Optional Double }, drag = None { density : Text } }
+, method = "RungeKutta89"
+, options =
+    { init_step = "60 s", min_step = "0.001 s", max_step = "2700 s", tolerance = 1.0e-12
+    , attempts = 50, fixed_step = False, error_ctrl = "RSSCartesianStep"
+    }
+}
+"""
+
+
+def phase_scan_modes(gp, stor21, od, device="cuda"):
+    """Phase 6l, the scan filter's modes on 6b's scene (`od`, phase_od's
+    return: the one-day truth, its arc, the estimate and 6b's timed f32
+    solution) on `device` (the card; "cpu" rehearses it), printed as "Scan
+    modes phase": (a) `filter_mode="parallel"` against the sequential scan,
+    both f64 with the 4-sigma gate, on the arc's first SCAN_GATE_S with ~3 %
+    of the range rows moved by +5 km: the same rejections, every moved row
+    among them, final estimates within SCAN_PARALLEL_KM of each other, both
+    within 100 m of the truth; (a') the parallel filter over the whole clean
+    day, timed, its s4 beside 6b's, within 100 m of the truth and within
+    `_f32_vs_f64`'s bounds of 6b's f32 solution; (b) `process_arc_batch`
+    over SCAN_ENSEMBLE_B estimates at 6b's settings (CKF, stm_jvp_degree 8,
+    f32) on the whole day, timed, member 0 (6b's estimate) within
+    SCAN_MEMBER_KM of 6b's solution, every member within 100 m of the
+    truth; (c) DSS-65 and DSS-34 with a Gauss-Markov range bias (tau 30
+    days, process noise 0.02 km; tests/test_od.py:535-547) every
+    SCAN_BIAS_CADENCE_S over SCAN_BIAS_S, the CKF with and without
+    `estimate_biases`: each station's injected bias within 3 sigma + 1 m,
+    the final error with the lanes below the error without; (d)
+    `prop_mode` "fixed" and "adaptive" over the arc's first SCAN_ROWS rows
+    against the batch CKF on the same rows (SCAN_ROW_KM), timed; (e) the spacecraft and integrator options
+    through TOML, the propagator's Dhall document (held field by field to
+    the propagator built in code), and the final estimate's spacecraft
+    through DER. Every filter that propagates runs the Pines kernel (> 0
+    launches, no twin primal call on CUDA). Returns the summary's numbers."""
+    from nyx_tpu_torch import Epoch, Frames
+    from nyx_tpu_torch.dynamics import sequence
+    from nyx_tpu_torch.io import config, der
+    from nyx_tpu_torch.od import (
+        GaussMarkov, KfEstimate, MeasurementType, ScanKalmanOD, Scheduler, StochasticNoise,
+        TrackingArcSim, TrkConfig, WhiteNoise,
+    )
+    from nyx_tpu_torch.propagators import IntegratorOptions
+
+    t_phase = time.perf_counter()
+    types = (MeasurementType.RANGE_KM, MeasurementType.DOPPLER_KM_S)
+    truth, traj, arc, est0, sol_b = od["truth"], od["traj"], od["arc"], od["est0"], od["sol"]
+    walls = {}
+
+    def make(stations=None, **kw):
+        return ScanKalmanOD(_od_propagator(stor21, "auto"), stations or od["stations"], types=types,
+                            variant="ckf", stm_jvp_degree=8, device=device, **kw)
+
+    def err_km(sol):
+        fin = traj.at(Epoch.from_tai_seconds_j2000(float(sol.epochs_tai_s[-1]))).to_vector()
+        return float(np.linalg.norm(sol.final_state()[:3] - fin[:3]))
+
+    def counted(label, fn):
+        """fn() with the kernel's counters reset before it, timed; raises
+        unless it launched the kernel and never the twin's primal on CUDA."""
+        gp.pines_accel_cuda.launches = 0
+        gp.pines_accel_torch.cuda_calls = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        wall, launches = time.perf_counter() - t0, gp.pines_accel_cuda.launches
+        if launches <= 0 or gp.pines_accel_torch.cuda_calls != 0:
+            raise RuntimeError(f"scan modes {label} did not run through the kernel: {launches} launches, "
+                               f"{gp.pines_accel_torch.cuda_calls} twin primal calls on CUDA")
+        return out, wall, launches
+
+    _log(f"Scan modes phase ({_card_line()}), on 6b's scene ({len(arc)} rows over a day):")
+    # (a) the parallel filter's gate against the sequential scan's
+    t_part = time.perf_counter()
+    head = _head(arc, SCAN_GATE_S)
+    rng = np.random.default_rng(42)
+    vals = np.array(head.values)
+    bad = rng.choice(len(head), size=len(head) // 33, replace=False)
+    vals[bad, head.types.index(MeasurementType.RANGE_KM)] += 5.0
+    bad_arc = dataclasses.replace(head, values=vals)
+    gated = {}
+    for mode in ("scan", "parallel"):
+        gated[mode], wall, launches = counted(
+            f"(a) {mode}", lambda m=mode: make(filter_mode=m, resid_rejection_sigmas=4.0).process_arc(
+                est0, bad_arc))
+        _log(f"  (a) {mode}, f64, 4-sigma gate, first {SCAN_GATE_S / 3600.0:g} h ({len(head)} rows, "
+             f"{len(bad)} range rows moved by +5 km): {wall:.3f} s, {launches} launches; rejected "
+             f"{int(gated[mode].rejected.sum())}, {err_km(gated[mode]) * 1e3:.3f} m from the truth")
+    seq, par = gated["scan"], gated["parallel"]
+    d_par = float(np.linalg.norm(seq.final_state()[:3] - par.final_state()[:3]))
+    d_rows = float(np.linalg.norm(seq.y_est[:, :3] - par.y_est[:, :3], axis=1).max())
+    same = bool(np.array_equal(seq.rejected, par.rejected))
+    _log(f"  (a) rejections identical: {same}; every moved row rejected: scan "
+         f"{bool(seq.rejected[bad].all())}, parallel {bool(par.rejected[bad].all())}; final estimates "
+         f"{d_par:.3e} km apart (rows at most {d_rows:.3e} km)")
+    if not (same and seq.rejected[bad].all() and par.rejected[bad].all() and d_par < SCAN_PARALLEL_KM):
+        raise RuntimeError(f"scan modes (a): the parallel gate parts from the scan's ({d_par} km)")
+    if not max(err_km(seq), err_km(par)) < OD_GUARD_KM:
+        raise RuntimeError("scan modes (a): a gated filter diverged")
+    walls["a"] = time.perf_counter() - t_part
+
+    # (a') the parallel filter over the whole clean day, timed
+    t_part = time.perf_counter()
+    par_od = make(filter_mode="parallel")
+    par_day, par_wall, par_launches = counted("(a')", lambda: par_od.process_arc(est0, arc))
+    par_s4 = par_od.stage_walls_s["s4"]
+    _log(f"  (a') parallel, f64, the whole day: {par_wall:.3f} s, {len(arc) / par_wall:.2f} rows/s, "
+         f"{par_launches} launches; stages "
+         + ", ".join(f"{k} {par_od.stage_walls_s[k]:.3f} s" for k in ("s1", "s2", "s3", "s4"))
+         + f" (6b's s4, the f32 scan: {od['s4']:.3f} s); {err_km(par_day) * 1e3:.3f} m from the truth")
+    if not err_km(par_day) < OD_GUARD_KM:
+        raise RuntimeError("scan modes (a'): the parallel filter diverged")
+    _f32_vs_f64("  (a') 6b's f32 scan against the parallel filter,", sol_b, par_day)
+    walls["a'"] = time.perf_counter() - t_part
+
+    # (b) the ensemble of filters at 6b's settings, timed
+    t_part = time.perf_counter()
+    draws = np.random.default_rng(SCAN_ENSEMBLE_SEED).multivariate_normal(
+        np.zeros(9), est0.covar, size=SCAN_ENSEMBLE_B - 1)
+    ests = [est0] + [KfEstimate.from_covar(truth.set_vector(truth.epoch, truth.to_vector() + d),
+                                           est0.covar) for d in draws]
+    ens_od = make(filter_algebra="f32")
+    ens, ens_wall, ens_launches = counted("(b)", lambda: ens_od.process_arc_batch(ests, arc))
+    d_member = float(np.linalg.norm(ens[0].final_state()[:3] - sol_b.final_state()[:3]))
+    errs = np.array([err_km(s) for s in ens])
+    w = ens_od.stage_walls_s
+    _log(f"  (b) process_arc_batch, B = {len(ests)}, CKF f32, the whole day: {ens_wall:.3f} s "
+         f"({ens_wall / od['wall']:.2f}x 6b's single filter, {od['wall']:.3f} s), "
+         f"{len(ests) / ens_wall:.2f} filters/s, {len(ests) * len(arc) / ens_wall:.1f} filter-rows/s, "
+         f"{ens_launches} launches; stages "
+         + ", ".join(f"{k} {w[k]:.3f} s" for k in ("s1", "s2", "s3", "s4"))
+         + f", s1 iterations {w['s1_iterations']}; member 0 {d_member:.3e} km from 6b's solution; "
+         f"members {1e3 * errs.min():.3f}-{1e3 * errs.max():.3f} m from the truth")
+    if not (d_member < SCAN_MEMBER_KM and errs.max() < OD_GUARD_KM and np.isfinite(errs).all()):
+        raise RuntimeError(f"scan modes (b): member 0 {d_member} km from 6b, worst member {errs.max()} km")
+    walls["b"] = time.perf_counter() - t_part
+
+    # (c) Gauss-Markov range biases estimated as state lanes
+    t_part = time.perf_counter()
+    biased = _dsn_stations()[:2]
+    for gs in biased:
+        gs.stochastic_noises[types[0]] = StochasticNoise(
+            WhiteNoise(2.0e-3), GaussMarkov(tau_s=30 * 86400.0, process_noise=0.02))
+    cfg = TrkConfig(sampling_s=SCAN_BIAS_CADENCE_S, scheduler=Scheduler(min_samples=5))
+    bias_arc = _head(TrackingArcSim.with_seed(biased, traj, {g.name: cfg for g in biased}, seed=5,
+                                              device=device).generate_measurements(), SCAN_BIAS_S)
+    col = bias_arc.types.index(types[0])
+    true_bias = {}
+    for gs in biased:
+        rows = [i for i in range(len(bias_arc)) if bias_arc.trackers[bias_arc.tracker_idx[i]] == gs.name]
+        eps = [Epoch.from_tai_seconds_j2000(float(bias_arc.epochs_tai_s[i])) for i in rows]
+        rv = torch.tensor(np.stack([traj.at(e).to_vector()[:6] for e in eps]), device=device)
+        t_tdb = torch.tensor([e.to_tdb_seconds() for e in eps], dtype=torch.float64, device=device)
+        noiseless = gs.measurement_fn(types[:1])(t_tdb, rv)[:, 0].cpu().numpy()
+        true_bias[gs.name] = float(np.mean(bias_arc.values[rows, col] - noiseless))
+    (with_b, without_b), wall, launches = counted("(c)", lambda: (
+        make(biased, estimate_biases=True).process_arc(est0, bias_arc),
+        make(biased).process_arc(est0, bias_arc)))
+    err_b, err_nb = err_km(with_b), err_km(without_b)
+    _log(f"  (c) bias lanes {with_b.bias_lanes}, {len(bias_arc)} rows every {SCAN_BIAS_CADENCE_S:g} s over "
+         f"{SCAN_BIAS_S / 3600.0:g} h, CKF f64 with and without them: {wall:.3f} s, {launches} launches")
+    ok = with_b.bias_lanes == tuple((g.name, types[0]) for g in biased)
+    for k, (name, _) in enumerate(with_b.bias_lanes):
+        est_k, sig_k = float(with_b.bias_est[-1, k]), float(np.sqrt(with_b.bias_var[-1, k]))
+        _log(f"      {name}: estimated {est_k * 1e3:.3f} m, injected {true_bias[name] * 1e3:.3f} m, "
+             f"3 sigma {3e3 * sig_k:.3f} m")
+        ok = ok and abs(est_k - true_bias[name]) < 3.0 * sig_k + 1e-3
+    _log(f"      final error with the lanes {err_b * 1e3:.3f} m, without {err_nb * 1e3:.3f} m")
+    if not (ok and err_b < err_nb):
+        raise RuntimeError("scan modes (c): the bias lanes did not recover the injected biases")
+    walls["c"] = time.perf_counter() - t_part
+
+    # (d) the per-row modes against the batch CKF on the same rows
+    t_part = time.perf_counter()
+    rows_arc = dataclasses.replace(arc, epochs_tai_s=arc.epochs_tai_s[:SCAN_ROWS],
+                                   tracker_idx=arc.tracker_idx[:SCAN_ROWS], values=arc.values[:SCAN_ROWS])
+    batch = make().process_arc(est0, rows_arc)
+    row_rates = {}
+    for mode in ("fixed", "adaptive"):
+        sol, wall, launches = counted(f"(d) {mode}", lambda m=mode: make(prop_mode=m).process_arc(est0, rows_arc))
+        gap = float(np.linalg.norm(sol.y_est[:, :3] - batch.y_est[:, :3], axis=1).max())
+        row_rates[mode] = SCAN_ROWS / wall
+        _log(f"  (d) prop_mode {mode!r}, the first {SCAN_ROWS} rows: {wall:.3f} s, {row_rates[mode]:.3f} "
+             f"rows/s, {launches} launches; largest row gap to the batch CKF {gap:.3e} km (bound "
+             f"{SCAN_ROW_KM:.3e})")
+        if not gap < SCAN_ROW_KM:
+            raise RuntimeError(f"scan modes (d): {mode} {gap} km from the batch CKF")
+    walls["d"] = time.perf_counter() - t_part
+
+    # (e) the documents
+    t_part = time.perf_counter()
+    prop = _od_propagator(stor21, "auto")
+    final_sc = truth.set_vector(Epoch.from_tai_seconds_j2000(float(sol_b.epochs_tai_s[-1])),
+                                sol_b.final_state())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        config.save_spacecraft(final_sc, tmp / "sc.toml")
+        sc_back = config.load_spacecraft(tmp / "sc.toml")
+        config.save_integrator_options(prop.opts, tmp / "opts.toml")
+        opts_back = config.load_integrator_options(tmp / "opts.toml")
+        (tmp / "prop.dhall").write_text(DHALL_OD_PROPAGATOR % (HERE / "data" / "JGM3.cof.gz"))
+        cfg = sequence.load_dhall_propagator(tmp / "prop.dhall")
+    g = cfg.dynamics.gravity_field
+    dhall_ok = (g["degree"], g["order"], g["gunzipped"], g["frame"], cfg.method, cfg.options) == (
+        stor21.max_degree, stor21.max_order, True, Frames.IAU_EARTH, "rk89", prop.opts) and \
+        cfg.options == IntegratorOptions() and Path(g["path"]).name == "JGM3.cof.gz"
+    data = der.spacecraft_to_der(final_sc)
+    sc_der = der.spacecraft_from_der(data)
+    der_ok = (np.array_equal(sc_der.orbit.r_km, final_sc.orbit.r_km)
+              and np.array_equal(sc_der.orbit.v_km_s, final_sc.orbit.v_km_s)
+              and sc_der.orbit.epoch.to_tai_seconds() == final_sc.orbit.epoch.to_tai_seconds()
+              and all(getattr(sc_der, f) == getattr(final_sc, f) for f in (
+                  "dry_mass_kg", "prop_mass_kg", "srp_area_m2", "cr", "drag_area_m2", "cd", "thruster")))
+    toml_ok = (config.spacecraft_to_dict(sc_back) == config.spacecraft_to_dict(final_sc)
+               and opts_back == prop.opts)
+    walls["e"] = time.perf_counter() - t_part
+    _log(f"  (e) documents: the final estimate's spacecraft and the integrator options through TOML, read "
+         f"back equal: {toml_ok}; the propagator's Dhall document (21x21 JGM3, RK89, default options; "
+         f"split precision is not a Dhall field) equal to the propagator built in code field by field: "
+         f"{dhall_ok}; the spacecraft through DER ({len(data)} bytes) equal to the bit: {der_ok}; "
+         f"{walls['e']:.3f} s")
+    if not (toml_ok and dhall_ok and der_ok):
+        raise RuntimeError("scan modes (e): a document did not read back equal")
+    wall_phase = time.perf_counter() - t_phase
+    _log("  walls: " + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()))
+    _log(f"Scan modes phase: {wall_phase:.1f} s")
+    return dict(parallel_rows_per_s=len(arc) / par_wall, parallel_s4=par_s4, ensemble_filters=len(ests),
+                ensemble_wall=ens_wall, launches_ensemble=ens_launches, fixed_rows_per_s=row_rates["fixed"],
+                wall=wall_phase)
 
 
 def main() -> None:
@@ -2840,6 +3137,9 @@ def main() -> None:
     # phase 6k: the OD host loop on 6i's ex06 scene
     host_od = phase_host_od(gp, tracking)
 
+    # phase 6l: the scan filter's modes on 6b's scene
+    scan_modes = phase_scan_modes(gp, stor21, od)
+
     # phase 7: summary
     _log(f"chip_smoke.py command time: {time.perf_counter() - _T_START:.1f} s")
     ms21, bound21, bound_by = k3["times"]["21x21"]
@@ -2898,6 +3198,12 @@ def main() -> None:
         "ex03_drift_days_per_min": ex03["drift_days_per_min"],
         "launches_host_od": host_od["launches"],
         "host_od_rows_per_s": host_od["rows_per_s"],
+        "od_parallel_rows_per_s": scan_modes["parallel_rows_per_s"],
+        "od_parallel_s4_s": scan_modes["parallel_s4"],
+        "od_ensemble_filters": scan_modes["ensemble_filters"],
+        "od_ensemble_wall_s": scan_modes["ensemble_wall"],
+        "launches_od_ensemble": scan_modes["launches_ensemble"],
+        "od_fixed_rows_per_s": scan_modes["fixed_rows_per_s"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

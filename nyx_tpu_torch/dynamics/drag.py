@@ -3,12 +3,14 @@
 F = -1/2 * 1e3 * rho * Cd * A * |v_rel| * v_rel / m (km/s^2), with the
 atmosphere-relative velocity v_rel = v - omega x r. The exponential density
 model is ported; the constant and StdAtm-1976 models are not yet.
+`estimate=True` marks Cd (state slot 7) estimable (`estimation_index`).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -37,6 +39,7 @@ class AtmDensity:
 class Drag:
     density: AtmDensity
     frame: Frame = Frames.IAU_EARTH
+    estimate: bool = False
 
     # Earth's prime-meridian rotation rate (IAU W-dot), rad/s
     _EARTH_OMEGA = 360.985_623_5 * math.pi / (180.0 * 86_400.0)
@@ -47,6 +50,9 @@ class Drag:
 
     def required_bodies(self):
         return ()
+
+    def estimation_index(self) -> Optional[int]:
+        return 7 if self.estimate else None
 
     def force_per_mass(self, ctx, t_tdb, r, v, sc):
         """Acceleration [B,3] km/s^2. `sc`: dict with cd, drag_area_m2, mass_kg."""

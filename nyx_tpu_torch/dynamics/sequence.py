@@ -6,14 +6,17 @@ and Dynamics, config.rs:44-157; DiscreteEvent, discrete_event.rs:29-60).
 The dynamics a configuration names are those the port has: point masses,
 a spherical-harmonic field read from a .cof file, SRP and exponential drag;
 solid tides, the 1976 standard atmosphere and EGM2008 files raise
-ConfigError. The reference's Dhall loaders (sequence.py:265-473) are not
-ported.
+ConfigError. Propagators and whole sequences also load from Dhall documents
+(`load_dhall_propagator`, `load_dhall_sequence`; the reference's
+sequence.py:265-473, parsed by `io/dhall.py`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from ..cosmic.frames import Frame, Frames
 from ..cosmic.spacecraft import GuidanceMode, Spacecraft, Thruster
@@ -208,3 +211,235 @@ class SpacecraftSequence:
             state, traj = prop.with_state(state, almanac, device=device).until_epoch_with_traj(items[i + 1][0])
             trajs.append(traj)
         return trajs
+
+
+# ---------------------------------------------------------------------------
+# Dhall front-end (the reference's serde_dhall configs, config.rs:57-133):
+# io/dhall.py parses a document into dicts, lists and scalars; the loaders
+# below map those trees onto the dataclasses above.
+# ---------------------------------------------------------------------------
+_DHALL_METHODS = {
+    "RungeKutta89": "rk89",
+    "DormandPrince78": "dp78",
+    "DormandPrince45": "dp45",
+    "CashKarp45": "ck45",
+    "RungeKutta4": "rk4",
+    "Verner56": "verner56",
+}
+
+#: StateParameter / OrbitalElement union tags -> the port's parameter names
+_DHALL_PARAMS = {
+    "SemiMajorAxis": "sma",
+    "Eccentricity": "ecc",
+    "Inclination": "inc",
+    "RAAN": "raan",
+    "AoP": "aop",
+    "TrueAnomaly": "ta",
+    "AoL": "aol",
+    "ApoapsisRadius": "apoapsis_radius",
+    "PeriapsisRadius": "periapsis_radius",
+    "Cr": "cr",
+    "Cd": "cd",
+    "DryMass": "dry_mass_kg",
+    "PropMass": "prop_mass_kg",
+    "BdotR": "b_dot_r",
+    "BdotT": "b_dot_t",
+    "BLTOF": "b_ltof",
+}
+
+
+def _dhall_frame(d) -> Frame:
+    from ..io.config import _frame_from_cfg
+
+    return _frame_from_cfg(d)
+
+
+def _dhall_options(d):
+    from ..io.config import parse_duration_s
+    from ..propagators import IntegratorOptions
+    from ..propagators.error_ctrl import ErrorControl
+
+    return IntegratorOptions(
+        init_step_s=parse_duration_s(d.get("init_step", 60.0)),
+        min_step_s=parse_duration_s(d.get("min_step", 1e-3)),
+        max_step_s=parse_duration_s(d.get("max_step", 2700.0)),
+        tolerance=float(d.get("tolerance", 1e-12)),
+        attempts=int(d.get("attempts", 50)),
+        fixed_step=bool(d.get("fixed_step", False)),
+        error_ctrl=getattr(ErrorControl, d.get("error_ctrl", "RSSCartesianStep")),
+    )
+
+
+def _dhall_dynamics(d) -> DynamicsConfig:
+    """Point masses, a gravity field ({_1: file spec, _2: frame}), drag by
+    its density's tag and SRP; `DynamicsConfig.build` refuses what the port
+    lacks (the 1976 atmosphere, solid tides, EGM2008 files)."""
+    accel = d.get("accel_models", {})
+    force = d.get("force_models", {})
+    cfg = DynamicsConfig()
+    pm = accel.get("point_masses")
+    if pm:
+        cfg.point_masses = tuple(int(b) for b in pm.get("celestial_objects", ()))
+    gf = accel.get("gravity_field")
+    if gf:
+        spec, frame = gf["_1"], gf["_2"]
+        cfg.gravity_field = {
+            "path": spec["filepath"],
+            "degree": int(spec["degree"]),
+            "order": int(spec["order"]),
+            "gunzipped": bool(spec.get("gunzipped", False)),
+            "frame": _dhall_frame(frame),
+        }
+    drag = force.get("drag")
+    if drag:
+        density = drag.get("density")
+        tag = density.get("_tag") if isinstance(density, dict) else str(density)
+        cfg.drag = {"Constant": "constant", "Exponential": "exp", "StdAtm": "stdatm"}.get(tag, "exp")
+    if force.get("solar_pressure") is not None:
+        cfg.solar_pressure = True
+    return cfg
+
+
+def propagator_config_from_dhall(d: dict) -> PropagatorConfig:
+    """One propagator document (prop_config.dhall, config.rs:102-133)."""
+    return PropagatorConfig(
+        dynamics=_dhall_dynamics(d),
+        method=_DHALL_METHODS.get(d.get("method", "RungeKutta89"), "rk89"),
+        options=_dhall_options(d.get("options", {})),
+    )
+
+
+def load_dhall_propagator(path) -> PropagatorConfig:
+    from ..io import dhall
+
+    return propagator_config_from_dhall(dhall.load(path))
+
+
+def _dhall_poly(d) -> np.ndarray:
+    """CommonPolynomial union -> most-significant-first coefficients."""
+    tag = d["_tag"]
+    if tag == "Constant":
+        return np.array([d["a"]])
+    if tag == "Linear":
+        return np.array([d["b"], d["a"]])
+    if tag == "Quadratic":
+        return np.array([d["c"], d["b"], d["a"]])
+    raise ConfigError(f"unsupported polynomial {tag}")
+
+
+def _dhall_guidance_law(d):
+    """A FiniteBurn (a time-invariant vector or azimuth and elevation
+    polynomials in a local frame) or a Kluever law with its objectives."""
+    from ..md.objective import Objective
+    from .guidance import Kluever, LocalFrame, Maneuver
+
+    tag = d.get("_tag")
+    if tag == "FiniteBurn":
+        frame = getattr(LocalFrame, d.get("frame", "VNC"), LocalFrame.VNC)
+        start, end = Epoch.from_str(d["start"]), Epoch.from_str(d["end"])
+        rep = d["representation"]
+        if rep.get("_tag") == "Vector":
+            return Maneuver.from_time_invariant(
+                start, end, float(d.get("thrust_prct", 1.0)),
+                np.array([rep["_1"], rep["_2"], rep["_3"]]), frame)
+        return Maneuver(start, end, float(d.get("thrust_prct", 1.0)),
+                        azimuth_poly=_dhall_poly(rep["azimuth"]),
+                        elevation_poly=_dhall_poly(rep["elevation"]), frame=frame)
+    if tag == "Kluever":
+        objectives = []
+        for entry in d.get("objectives", ()):
+            o = entry["objective"]
+            p = o["parameter"]
+            if isinstance(p, dict):  # Element : <OrbitalElement>
+                p = p.get("_value", p.get("_tag"))
+            objectives.append(Objective(
+                parameter=_DHALL_PARAMS.get(str(p), str(p).lower()),
+                desired_value=float(o["desired_value"]),
+                tolerance=float(o.get("tolerance", 0.1)),
+                multiplicative_factor=float(o.get("multiplicative_factor", 1.0)),
+                additive_factor=float(o.get("additive_factor", 0.0)),
+            ))
+        weights = tuple(1.0 for _ in objectives)
+        if d.get("max_eclipse_prct") is not None:
+            return Kluever.from_max_eclipse(tuple(objectives), weights,
+                                            float(d["max_eclipse_prct"]))
+        return Kluever.new(tuple(objectives), weights)
+    raise ConfigError(f"unsupported guidance law {tag}")
+
+
+def _dhall_properties(d) -> PhysicalProperties:
+    mass = d.get("mass") or {}
+    srp = d.get("srp") or {}
+    drag = d.get("drag") or {}
+    return PhysicalProperties(
+        dry_mass_kg=float(mass.get("dry_mass_kg", 0.0)) + float(mass.get("extra_mass_kg", 0.0)),
+        prop_mass_kg=float(mass.get("prop_mass_kg", 0.0)),
+        srp_area_m2=float(srp.get("area_m2", 0.0)),
+        drag_area_m2=float(drag.get("area_m2", 0.0)),
+    )
+
+
+def _dhall_impulsive(d):
+    from .guidance import ImpulsiveManeuver, LocalFrame
+
+    dv = d["dv_km_s"]
+    return ImpulsiveManeuver(
+        dv_km_s=np.array([dv["_1"], dv["_2"], dv["_3"]]),
+        local_frame=getattr(LocalFrame, d.get("local_frame", "VNC"), LocalFrame.VNC),
+    )
+
+
+def _dhall_on_entry(d) -> DiscreteEvent:
+    tag = d.get("_tag") if isinstance(d, dict) else str(d)
+    if tag == "FrameSwap":
+        return DiscreteEvent("frame_swap", new_frame=_dhall_frame(d["new_frame"]))
+    if tag in ("Staging", "Docking"):
+        key = "decrement_properties" if tag == "Staging" else "increment_properties"
+        props = d.get(key)
+        mnv = d.get("impulsive_maneuver")
+        return DiscreteEvent(
+            tag.lower(),
+            impulsive_maneuver=_dhall_impulsive(mnv) if mnv else None,
+            properties=_dhall_properties(props) if props else None,
+        )
+    raise ConfigError(f"unsupported discrete event {tag}")
+
+
+def _dhall_phase(d) -> Phase:
+    tag = d.get("_tag") if isinstance(d, dict) else str(d)
+    if tag == "Terminate":
+        return Phase.Terminate()
+    if tag != "Activity":
+        raise ConfigError(f"unsupported phase {tag}")
+    guidance = None
+    if d.get("guidance") is not None:
+        g = d["guidance"]
+        guidance = {
+            "law": _dhall_guidance_law(g["law"]),
+            "thruster_model": g.get("thruster_model", ""),
+            "disable_prop_mass": bool(g.get("disable_prop_mass", False)),
+        }
+    on_entry = _dhall_on_entry(d["on_entry"]) if d.get("on_entry") else None
+    return Phase.Activity(d.get("name", ""), d.get("propagator", ""), guidance, on_entry,
+                          bool(d.get("disabled", False)))
+
+
+def sequence_from_dhall(d: dict) -> SpacecraftSequence:
+    """A whole sequence document (full_seq.dhall, sequence/mod.rs:48-120):
+    the timeline as (epoch, phase) pairs, the thruster sets and the
+    propagators by name."""
+    seq = {Epoch.from_str(pair["_1"]): _dhall_phase(pair["_2"]) for pair in d.get("seq", ())}
+    thrusters = {
+        pair["_1"]: Thruster(thrust_N=float(pair["_2"]["thrust_N"]),
+                             isp_s=float(pair["_2"]["isp_s"]))
+        for pair in d.get("thruster_sets", ())
+    }
+    props = {pair["_1"]: propagator_config_from_dhall(pair["_2"])
+             for pair in d.get("propagators", ())}
+    return SpacecraftSequence(seq=seq, thruster_sets=thrusters, propagators=props)
+
+
+def load_dhall_sequence(path) -> SpacecraftSequence:
+    from ..io import dhall
+
+    return sequence_from_dhall(dhall.load(path))

@@ -4,13 +4,13 @@ Torch port of nyx_tpu/dynamics/srp.py: cannonball SRP, flux 1367 W/m^2 at
 1 AU scaled by (AU/r)^2, Cr * A area, illumination factor from the
 max-occultation shadow model over a list of shadow bodies (`cislunar`:
 the Earth and the Moon). Acceleration points from Sun to spacecraft.
-Estimating Cr (`estimate`, `estimation_index`) is not ported yet.
+`estimate=True` marks Cr (state slot 6) estimable (`estimation_index`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 from ..constants import AU_KM, NAIF, RADIUS_BY_NAIF, SOLAR_FLUX_W_M2, SPEED_OF_LIGHT_M_S
 from ..cosmic.eclipse import illumination_factor
@@ -21,6 +21,7 @@ from ..xmath import norm
 class SolarPressure:
     shadow_bodies: Tuple[int, ...] = (NAIF.EARTH,)
     phi_w_m2: float = SOLAR_FLUX_W_M2
+    estimate: bool = False
 
     @classmethod
     def default(cls, *shadow_bodies) -> "SolarPressure":
@@ -33,6 +34,9 @@ class SolarPressure:
 
     def required_bodies(self):
         return (NAIF.SUN,) + tuple(self.shadow_bodies)
+
+    def estimation_index(self) -> Optional[int]:
+        return 6 if self.estimate else None
 
     def force_per_mass(self, ctx, t_tdb, r, v, sc):
         """Acceleration [B,3] km/s^2 at the dtype of `r`. `sc`: dict with

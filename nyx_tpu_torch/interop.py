@@ -100,6 +100,14 @@ def kf_estimate_from_numpy(nominal_vector, covar, epoch_tai_s: float,
         spacecraft_from_numpy(nominal_vector, epoch_tai_s, frame, **spacecraft), covar)
 
 
+def kf_estimates_from_numpy(nominal_vectors, covars, epoch_tai_s: float,
+                            frame: Frame = Frames.EME2000, **spacecraft) -> list:
+    """KfEstimates at one epoch from the reference estimates' nominal
+    vectors [B, 9] and covariances [B, 9, 9] (an ensemble of filters)."""
+    return [kf_estimate_from_numpy(v, c, epoch_tai_s, frame, **spacecraft)
+            for v, c in zip(np.asarray(nominal_vectors), np.asarray(covars))]
+
+
 def trajectory_from_numpy(epoch0_tai_s: float, ts, ys, frame: Frame = Frames.EME2000,
                           **spacecraft) -> Trajectory:
     """A Trajectory from the reference trajectory's start epoch (TAI), node

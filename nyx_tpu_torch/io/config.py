@@ -1,12 +1,12 @@
-"""YAML configuration of ground stations and tracking schedules.
+"""YAML and TOML configuration documents.
 
-Port of the parts of nyx_tpu/io/config.py that station and tracking files
-need (:33-175, 252-290, 330-349): durations ("1 min", "24 h"), frames by
-name or NAIF ids, noise models, `GroundStation` documents (one, a list, or
-a named map) and `TrkConfig` documents (one, or a named map), with the
-reference's field names. YAML and TOML are read; YAML is written. The
-spacecraft and integrator-options documents and the TOML writer are not
-ported yet.
+Port of nyx_tpu/io/config.py: durations ("1 min", "24 h"), frames by name
+or NAIF ids, noise models, `GroundStation` documents (one, a list, or a
+named map), `Spacecraft` documents, `TrkConfig` documents (one, or a named
+map) and `IntegratorOptions` documents, with the reference's field names.
+Both formats are read (TOML by `tomllib`) and written (TOML by the small
+emitter `toml_dumps`: scalars, arrays, tables and arrays of tables, which
+is all these documents hold).
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import yaml
 
 from ..constants import NAIF
 from ..cosmic.frames import Frame, Frames
+from ..cosmic.orbit import Orbit
+from ..cosmic.spacecraft import Spacecraft, Thruster
 from ..errors import ConfigError
 from ..time import Epoch
 
@@ -143,9 +145,69 @@ def ground_station_to_dict(gs) -> dict:
 
 
 def save_ground_stations(stations, path) -> str:
-    """YAML: one station as a document, several as a list."""
+    """YAML: one station as a document, several as a list; TOML: a
+    `[[stations]]` array of tables."""
     doc = [ground_station_to_dict(g) for g in stations]
+    if str(path).endswith(".toml"):
+        return _save_any({"stations": doc}, path)
     return _save_any(doc if len(doc) > 1 else doc[0], path)
+
+
+def spacecraft_from_dict(d: dict) -> Spacecraft:
+    """A Spacecraft from its document: a Cartesian orbit with its epoch
+    and frame, mass (dry plus extra, propellant), SRP, drag and an
+    optional thruster."""
+    o = d["orbit"]
+    orbit = Orbit.cartesian(
+        float(o["x_km"]), float(o["y_km"]), float(o["z_km"]),
+        float(o["vx_km_s"]), float(o["vy_km_s"]), float(o["vz_km_s"]),
+        Epoch.from_str(str(o["epoch"])), _frame_from_cfg(o.get("frame", "EME2000")))
+    mass, srp, drag = d.get("mass", {}), d.get("srp", {}), d.get("drag", {})
+    thruster = None
+    if d.get("thruster"):
+        thruster = Thruster(thrust_N=float(d["thruster"]["thrust_N"]),
+                            isp_s=float(d["thruster"]["isp_s"]))
+    return Spacecraft(
+        orbit=orbit,
+        dry_mass_kg=float(mass.get("dry_mass_kg", 0.0)) + float(mass.get("extra_mass_kg", 0.0)),
+        prop_mass_kg=float(mass.get("prop_mass_kg", 0.0)),
+        srp_area_m2=float(srp.get("area_m2", 0.0)),
+        cr=float(srp.get("coeff_reflectivity", 1.8)),
+        drag_area_m2=float(drag.get("area_m2", 0.0)),
+        cd=float(drag.get("coeff_drag", 2.2)),
+        thruster=thruster,
+    )
+
+
+def load_spacecraft(path) -> Spacecraft:
+    return spacecraft_from_dict(_load_any(path))
+
+
+def spacecraft_to_dict(sc: Spacecraft) -> dict:
+    """The document of `spacecraft_from_dict`; the frame is written by name,
+    EME2000 for an inertial frame and IAU_EARTH otherwise, as the
+    reference does, and the epoch in UTC."""
+    o = sc.orbit
+    out = {
+        "orbit": {
+            "x_km": float(o.r_km[0]), "y_km": float(o.r_km[1]), "z_km": float(o.r_km[2]),
+            "vx_km_s": float(o.v_km_s[0]), "vy_km_s": float(o.v_km_s[1]),
+            "vz_km_s": float(o.v_km_s[2]),
+            "frame": "EME2000" if o.frame.is_inertial else "IAU_EARTH",
+            "epoch": o.epoch.isoformat("UTC"),
+        },
+        "mass": {"dry_mass_kg": sc.dry_mass_kg, "prop_mass_kg": sc.prop_mass_kg,
+                 "extra_mass_kg": 0.0},
+        "srp": {"coeff_reflectivity": sc.cr, "area_m2": sc.srp_area_m2},
+        "drag": {"coeff_drag": sc.cd, "area_m2": sc.drag_area_m2},
+    }
+    if sc.thruster is not None:
+        out["thruster"] = {"thrust_N": sc.thruster.thrust_N, "isp_s": sc.thruster.isp_s}
+    return out
+
+
+def save_spacecraft(sc: Spacecraft, path) -> str:
+    return _save_any(spacecraft_to_dict(sc), path)
 
 
 def trk_config_from_dict(d: dict):
@@ -194,9 +256,100 @@ def _load_any(path):
     return _lenient_yaml_load(path)
 
 
+def _toml_scalar(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, float)):
+        return repr(v)
+    return '"' + str(v).replace("\\", "\\\\").replace('"', '\\"') + '"'
+
+
+def _toml_emit(d: dict, prefix="") -> List[str]:
+    """Lines of a table: its scalars and plain arrays, then each sub-table
+    under its dotted name, then each array of tables (None is left out)."""
+    lines = []
+    scalars = {k: v for k, v in d.items() if not isinstance(v, (dict, list)) and v is not None}
+    arrays = {k: v for k, v in d.items()
+              if isinstance(v, list) and not all(isinstance(e, dict) for e in v)}
+    tables = {k: v for k, v in d.items() if isinstance(v, dict)}
+    table_arrays = {k: v for k, v in d.items()
+                    if isinstance(v, list) and v and all(isinstance(e, dict) for e in v)}
+    for k, v in scalars.items():
+        lines.append(f"{k} = {_toml_scalar(v)}")
+    for k, v in arrays.items():
+        lines.append(f"{k} = [" + ", ".join(_toml_scalar(e) for e in v) + "]")
+    for k, v in tables.items():
+        name = f"{prefix}{k}"
+        lines.append(f"\n[{name}]")
+        lines.extend(_toml_emit(v, name + "."))
+    for k, v in table_arrays.items():
+        name = f"{prefix}{k}"
+        for entry in v:
+            lines.append(f"\n[[{name}]]")
+            lines.extend(_toml_emit(entry, name + "."))
+    return lines
+
+
+def toml_dumps(d: dict) -> str:
+    """A document as TOML text (the reference's emitter, config.py:292-328)."""
+    return "\n".join(_toml_emit(d)) + "\n"
+
+
 def _save_any(doc, path) -> str:
-    if str(path).endswith(".toml"):
-        raise ConfigError("writing TOML is not ported; save as YAML")
+    """Write a document by extension: .toml by `toml_dumps`, else YAML."""
     with open(path, "w") as f:
-        yaml.safe_dump(doc, f, sort_keys=False)
+        if str(path).endswith(".toml"):
+            f.write(toml_dumps(doc))
+        else:
+            yaml.safe_dump(doc, f, sort_keys=False)
     return str(path)
+
+
+def integrator_options_to_dict(opts) -> dict:
+    return {
+        "init_step": f"{opts.init_step_s} s",
+        "min_step": f"{opts.min_step_s} s",
+        "max_step": f"{opts.max_step_s} s",
+        "tolerance": opts.tolerance,
+        "attempts": opts.attempts,
+        "fixed_step": opts.fixed_step,
+        "error_ctrl": getattr(opts.error_ctrl, "__name__", "rss_cartesian_step"),
+    }
+
+
+# error controls by function name or by the reference's enum spelling
+_ERROR_CTRL_NAMES = {
+    "rss_cartesian_step": "RSSCartesianStep",
+    "rss_cartesian_state": "RSSCartesianState",
+    "rss_step": "RSSStep",
+    "rss_state": "RSSState",
+    "largest_error": "LargestError",
+    "largest_state": "LargestState",
+    "largest_step": "LargestStep",
+}
+
+
+def integrator_options_from_dict(d: dict):
+    from ..propagators import IntegratorOptions
+    from ..propagators.error_ctrl import ErrorControl
+
+    name = str(d.get("error_ctrl", "RSSCartesianStep"))
+    name = _ERROR_CTRL_NAMES.get(name, name)
+    return IntegratorOptions(
+        init_step_s=parse_duration_s(d.get("init_step", 60.0)),
+        min_step_s=parse_duration_s(d.get("min_step", 1e-3)),
+        max_step_s=parse_duration_s(d.get("max_step", 2700.0)),
+        tolerance=float(d.get("tolerance", 1e-12)),
+        attempts=int(d.get("attempts", 50)),
+        fixed_step=bool(d.get("fixed_step", False)),
+        error_ctrl=getattr(ErrorControl, name),
+    )
+
+
+def load_integrator_options(path):
+    """IntegratorOptions from YAML or TOML (the reference's options.rs:188-260)."""
+    return integrator_options_from_dict(_load_any(path))
+
+
+def save_integrator_options(opts, path) -> str:
+    return _save_any(integrator_options_to_dict(opts), path)

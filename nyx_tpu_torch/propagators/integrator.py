@@ -95,6 +95,7 @@ def propagate(
     n_capture: int = 0,
     capture_stride: int = 1,
     state_dtype: torch.dtype = torch.float64,
+    t0=None,
 ) -> PropResult:
     """Propagate a batch of states `y0` [B, N] for `duration_s` (float, or
     [B] tensor; may be negative), on the device of `y0`.
@@ -110,6 +111,9 @@ def propagate(
     RK combinations and the capture buffer (float32 for the Encke
     deviation lanes, mc/encke.py); time, steps and the error norm stay
     float64, as in the reference (integrator.py:155,184-195).
+    `t0` (float, or [B] tensor; default 0) is the time the lanes start
+    at: the EOM sees `t0 + elapsed`, and the result's times are on that
+    clock (the reference's `t0`, integrator.py:200-204).
     """
     if y0.dtype != state_dtype or y0.dim() != 2:
         raise ValueError(f"y0 must be a [B, N] {state_dtype} tensor, got {y0.dtype} {tuple(y0.shape)}")
@@ -126,6 +130,8 @@ def propagate(
     else:
         dur = torch.full((B,), float(duration_s), **f64)
     t = torch.zeros(B, **f64)
+    if t0 is not None:
+        t = t + (t0.to(**f64) if isinstance(t0, torch.Tensor) else float(t0))
     t_stop = t + dur
     sgn = torch.where(dur < 0, -1.0, torch.ones_like(dur))
 

@@ -37,6 +37,7 @@ try:
     from nyx_tpu.dynamics import SolarPressure as RSolarPressure
     from nyx_tpu.dynamics import SpacecraftDynamics as RSpacecraftDynamics
     from nyx_tpu.ephem.almanac import Almanac as RAlmanac
+    from nyx_tpu.io.config import load_ground_stations as r_load_ground_stations
     from nyx_tpu.io.config import load_trk_configs as r_load_trk_configs
     from nyx_tpu.od import GroundStation as RGroundStation
     from nyx_tpu.od import InterlinkTxSpacecraft as RInterlinkTxSpacecraft
@@ -390,7 +391,8 @@ def test_simulator_feature_matches_reference(case, leo):
 # ---------------------------------------------------------------- YAML
 def test_station_and_tracking_yaml_round_trip(tmp_path):
     """Stations saved by the port load in both packages (one, a list, and
-    the named map), and the reference's saved stations load in the port,
+    the named map; one in TOML too), and the reference's saved stations
+    load in the port,
     with the same coordinates, frame, mask, types, two-way time, light time
     and noises; a tracking YAML written by the test (durations as strings,
     a manual strand) loads to the same configs in both."""
@@ -420,8 +422,9 @@ def test_station_and_tracking_yaml_round_trip(tmp_path):
     assert list(named) == [g.name for g in st] and named[st[1].name].frame == P.Frames.IAU_EARTH
     same(GroundStation.load(tmp_path / "one.yaml"), RGroundStation.load(tmp_path / "one.yaml"))
     same(GroundStation.load(tmp_path / "ref.yaml"), _stations(R)[2])
-    with pytest.raises(ConfigError):
-        st[0].save(tmp_path / "one.toml")
+    # TOML too, as a [[stations]] array of tables (the reference's layout)
+    st[0].save(tmp_path / "one.toml")
+    same(GroundStation.load(tmp_path / "one.toml"), r_load_ground_stations(tmp_path / "one.toml")[0])
 
     (tmp_path / "trk.yaml").write_text(
         "Madrid:\n  sampling: 1 min\n  scheduler:\n    handoff: Greedy\n    cadence: Continuous\n"
