@@ -104,10 +104,11 @@ raises and exits non-zero:
    the targeter from tests/test_targeting.py's LEO (sma half an orbit
    later by FD and by dual, the VNC sma and ecc pair, a position target)
    in two-body, then under 21x21 JGM3 split at 1e-10 through the kernel
-   (launches counted, no twin primal call on CUDA), and the sma target by
-   FD again with the twin forced, and the dual's first Newton iteration
-   towards the same sma a quarter orbit later through the kernel and the
-   twin (the same Newton iterations, corrections within 1e-12 km/s);
+   (launches counted, no twin primal call on CUDA), and FD's and the
+   dual's first Newton iterations towards the same sma a sixteenth of an
+   orbit later through the kernel and the twin (corrections within 1e-12
+   km/s; FD's whole solve through the twin, the dual's towards a quarter
+   orbit, until phase 6m needed the time);
    (b) finite-burn targeting (`thrust_dir`, `thrust_dir_rate`) and
    `convert_impulsive_mnvr`, each maneuver flown again and held to the
    rocket equation; (c) the 3-node minimum-fuel multiple shooting; (d) the
@@ -166,6 +167,19 @@ raises and exits non-zero:
    the batch CKF; (e) the spacecraft and integrator options through TOML,
    the propagator's Dhall document and the spacecraft through DER; every
    filter through the kernel;
+6m. the file-driven high-fidelity Earth dynamics on Config 2's scene and
+   width (ROADMAP Queue 1 items 5 and 6), printed as "hifi phase": the
+   21x21 JGM3 field written as an EGM2008 text file and read back by
+   `from_egm2008`, the Moon and the Sun written as SPK type-3 files from
+   the analytic almanac and read back by `Almanac([moon, sun])` (all in a
+   temporary directory), `Harmonics` at f64 precision, the Moon's and the
+   Sun's point masses, solid tides, SRP and the 1976 atmosphere, with
+   `pert_precision="f32"`, so the kernel runs the whole field at q_lo 0 in
+   every stage; (a) B = 10,000 over the day's first hour (a depth cut),
+   timed, launches counted, no twin call on CUDA; over the hour's first
+   300 s, lanes 0-63 (b) through the kernel and the twin (within 1e-3
+   km), (c) with f64 perturbations (within 1 m of (b)), (d) 16 of them on
+   the CPU (within 1e-3 km of (b)); the depth cuts of 6h paid for it;
 7. print the command time and the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
@@ -453,6 +467,23 @@ SCAN_BIAS_CADENCE_S = 120.0
 SCAN_ROWS = 8
 SCAN_REFERENCE_ROW_GAP_KM = 7.553769e-9
 SCAN_ROW_KM = max(1e-6, 1.1 * SCAN_REFERENCE_ROW_GAP_KM)
+# Phase 6m, the file-driven high-fidelity Earth dynamics on Config 2's scene
+# and width: the first HIFI_SECONDS of its day (a depth cut); HIFI_B_TWIN
+# of its lanes over the first HIFI_RERUN_S through the twin (held to
+# TWIN_FINAL_TOL_KM against the kernel's run of the same lanes) and with f64
+# perturbations (held to HIFI_F64_TOL_KM: the reference's claim for its f32
+# stack, spacecraft_dyn.py:52-58), HIFI_B_CPU of them on the CPU (held to
+# TWIN_FINAL_TOL_KM). The f32 perturbations take 8 integrator iterations
+# over 300 s, 16 over 600-900 s and 96 over the hour (the hour's reruns
+# took 47-51 s on NVIDIA H100 80GB HBM3 cards at 700 W). The SPK files
+# cover the ephemeris table's 2-day pad and a day more on each side (the
+# reader clamps to its edge records).
+HIFI_SECONDS = 3600.0
+HIFI_RERUN_S = 300.0
+HIFI_B_TWIN = 64
+HIFI_B_CPU = 16
+HIFI_F64_TOL_KM = 1e-3
+HIFI_SPK_MARGIN_DAYS = 3.0
 # f32 against f64 filter algebra (tests/test_od.py:1782-1792): positions
 # (km) and sigmas (relative).
 OD_F32_POS_KM = 2e-3
@@ -1962,9 +1993,9 @@ def phase_mission_design(gp, stor21, device="cuda"):
         half an orbit later by FD and by dual, the VNC pair, the position
         target; in two-body (RK89 at 1e-12), then under the 21x21 JGM3
         split field at 1e-10 through the kernel (its launches counted from
-        0, no twin primal call on CUDA), then the FD solve again with
-        backend="torch", and the dual's first Newton iteration towards
-        the same sma a quarter orbit later through both;
+        0, no twin primal call on CUDA), then FD's and the dual's first
+        Newton iterations towards the same sma a sixteenth of an orbit
+        later through the kernel and with backend="torch";
     (b) finite-burn targeting, `thrust_dir` and `thrust_dir_rate`
         (:184-262), each maneuver flown again and held to the rocket
         equation, and `convert_impulsive_mnvr` (:263-303) against the
@@ -2022,40 +2053,38 @@ def phase_mission_design(gp, stor21, device="cuda"):
     akern = _md_targeter_scenes(split_prop("auto"), leo, epoch, device, sync, "21x21 split, kernel")
     split_wall = time.perf_counter() - t0
     launches, twin_calls = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
-    atwin = _md_targeter_scenes(split_prop("torch"), leo, epoch, device, sync, "21x21 split, twin",
-                                ("sma_fd",))
-    d_twin = max(float(np.abs(akern[k][0].correction - atwin[k][0].correction).max()) for k in atwin)
-    same_iters = all(akern[k][0].iterations == atwin[k][0].iterations for k in atwin)
-    # the dual's twin witness: its first Newton iteration through the kernel
-    # and through the twin, towards the same sma a quarter orbit later (the
-    # whole solve through the twin, 53.7-90.8 s, until the tracking phase
-    # needed the time; half an orbit later until the host loop's CPU run
-    # did)
+    # the twin witnesses: the first Newton iteration of FD and of the dual
+    # through the kernel and through the twin, towards the same sma a
+    # sixteenth of an orbit later (8 integrator iterations; 16 from an
+    # eighth to a quarter). Until phase 6m needed the time, FD's whole
+    # solve ran through the twin (15.9 s) and the dual's first iteration
+    # aimed a quarter orbit ahead (15.9 s for both); the dual's whole solve
+    # until the tracking phase (53.7-90.8 s), half an orbit until the host
+    # loop's CPU run.
     sma_obj = [Objective.within_tolerance("sma", 8000.0, 1e-3)]
-    quarter = epoch + leo.orbit.period_s / 4.0
+    ahead = epoch + leo.orbit.period_s / 16.0
     t0 = time.perf_counter()
-    first = {b: Targeter.delta_v(split_prop(b), sma_obj, iterations=1).try_achieve_dual(
-        leo, epoch, quarter, device=device) for b in ("auto", "torch")}
+    first = {(m, b): Targeter.delta_v(split_prop(b), sma_obj, iterations=1).try_achieve_from(
+        leo, epoch, ahead, m, device=device) for m in ("fd", "dual") for b in ("auto", "torch")}
     sync()
-    d_first = float(np.abs(first["auto"].correction - first["torch"].correction).max())
-    _log(f"  21x21 split dual's first Newton iteration through the kernel and the twin "
-         f"({time.perf_counter() - t0:.3f} s): corrections {d_first:.3e} km/s apart")
-    d_twin = max(d_twin, d_first)
+    d_twin = max(float(np.abs(first[(m, "auto")].correction - first[(m, "torch")].correction).max())
+                 for m in ("fd", "dual"))
+    _log(f"  21x21 split FD's and dual's first Newton iterations through the kernel and the twin "
+         f"({time.perf_counter() - t0:.3f} s): corrections {d_twin:.3e} km/s apart")
     fd, dual = a2b["sma_fd"][0].correction, a2b["sma_dual"][0].correction
     d_dual = float(np.abs(fd - dual).max())
     fd, dual = akern["sma_fd"][0].correction, akern["sma_dual"][0].correction
     d_dual_split = abs(float(np.linalg.norm(fd) - np.linalg.norm(dual)))
-    solves = len(a2b) + len(akern) + len(atwin)  # the dual's single iterations not counted
+    solves = len(a2b) + len(akern)  # the witnesses' single iterations not counted
     _log(f"  (a) Pines launches on the split solves {launches}, twin primal calls on CUDA {twin_calls}; "
-         f"split {split_wall:.3f} s for {len(akern)} solves; kernel vs twin (sma by FD, the dual's first "
-         f"iteration): same "
-         f"Newton iterations {same_iters}, corrections within {d_twin:.3e} km/s; dual vs FD {d_dual:.3e} km/s "
+         f"split {split_wall:.3f} s for {len(akern)} solves; kernel vs twin (FD's and the dual's first "
+         f"iterations): corrections within {d_twin:.3e} km/s; dual vs FD {d_dual:.3e} km/s "
          f"(two-body); split: magnitudes {d_dual_split:.3e} km/s apart, components "
          f"{float(np.abs(fd - dual).max()):.3e}")
     if launches <= 0 or twin_calls != 0:
         raise RuntimeError(f"mission design (a): {launches} kernel launches, {twin_calls} twin calls on CUDA")
-    if not (same_iters and d_twin < MD_TWIN_TOL_KM_S):
-        raise RuntimeError(f"mission design (a): kernel vs twin {d_twin} km/s, same iterations {same_iters}")
+    if not d_twin < MD_TWIN_TOL_KM_S:
+        raise RuntimeError(f"mission design (a): kernel vs twin {d_twin} km/s")
     if not (d_dual < MD_DUAL_FD_KM_S and d_dual_split < MD_DUAL_FD_KM_S):
         raise RuntimeError(f"mission design (a): dual vs FD {d_dual} km/s (two-body), {d_dual_split} (split)")
 
@@ -3018,6 +3047,134 @@ def phase_scan_modes(gp, stor21, od, device="cuda"):
                 wall=wall_phase)
 
 
+def hifi_files(out_dir: Path, stor21, epoch, seconds: float = HIFI_SECONDS):
+    """Phase 6m's files, written by the port into `out_dir`: an EGM2008-format
+    text file of `stor21`'s coefficients (17 significant digits, D
+    exponents, so they read back to the bit), and the Moon's and the Sun's
+    SPK type-3 segments about the Earth from the port's analytic almanac,
+    covering [epoch, epoch + seconds] with HIFI_SPK_MARGIN_DAYS on each
+    side. Returns (egm_path, [moon_path, sun_path])."""
+    from nyx_tpu_torch.constants import NAIF
+    from nyx_tpu_torch.ephem import Almanac
+    from nyx_tpu_torch.io.spk import write_spk_type3
+
+    egm = out_dir / "egm2008_jgm3_21x21.txt"
+    with open(egm, "w") as f:
+        for n in range(2, stor21.max_degree + 1):
+            for m in range(min(n, stor21.max_order) + 1):
+                c, s = (f"{x:.16E}".replace("E", "D") for x in (stor21.c_nm[n, m], stor21.s_nm[n, m]))
+                f.write(f"{n:5d} {m:5d} {c} {s} 0.0D+00 0.0D+00\n")
+    analytic = Almanac()
+    pad = HIFI_SPK_MARGIN_DAYS * 86_400.0
+    t0, t1 = epoch.to_tdb_seconds() - pad, epoch.to_tdb_seconds() + seconds + pad
+
+    def states(body):
+        def sample(ts):
+            h = 2.0
+            r = analytic.position(body, NAIF.EARTH, ts)
+            v = (analytic.position(body, NAIF.EARTH, ts + h) - analytic.position(body, NAIF.EARTH, ts - h)) / (2 * h)
+            return np.concatenate([r, v], axis=1)
+        return sample
+
+    spks = [write_spk_type3(out_dir / name, body, NAIF.EARTH, 1, t0, t1, states(body), intlen, 11)
+            for name, body, intlen in (("moon_hifi.bsp", NAIF.MOON, 86_400.0),
+                                       ("sun_hifi.bsp", NAIF.SUN, 4 * 86_400.0))]
+    return egm, spks
+
+
+def hifi_propagator(field, pert_precision: str = "f32", backend: str = "auto"):
+    """Phase 6m's propagator: `field` (a GravityFieldData) at f64 precision,
+    Moon and Sun point masses, solid tides, SRP and the 1976 atmosphere, with
+    the perturbations at `pert_precision`; RK89 at Config 2's tolerances."""
+    from nyx_tpu_torch import Frames
+    from nyx_tpu_torch.constants import NAIF
+    from nyx_tpu_torch.dynamics import (
+        Drag, Harmonics, OrbitalDynamics, PointMasses, SolarPressure, SolidTides, SpacecraftDynamics,
+    )
+    from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
+
+    orbital = OrbitalDynamics.from_models(
+        (Harmonics.from_stor(field, "f64", backend), PointMasses((NAIF.MOON, NAIF.SUN)),
+         SolidTides.earth_moon_system()), Frames.EME2000)
+    dyn = SpacecraftDynamics(orbital, (SolarPressure.default(), Drag.std_atm1976()),
+                             pert_precision=pert_precision)
+    return Propagator.rk89(dyn, IntegratorOptions.with_adaptive_step(0.1, 2700.0, 1e-9))
+
+
+def phase_hifi(gp, stor21, mvn, device="cuda"):
+    """Phase 6m, the file-driven high-fidelity Earth dynamics on Config 2's
+    scene: the field read back from an EGM2008 file, the Moon and the Sun
+    from SPK files, solid tides, SRP and the 1976 atmosphere, the
+    perturbations at f32 (the Pines kernel over the whole f64-precision
+    field at q_lo 0 in every stage). (a) B_MAIN lanes over HIFI_SECONDS
+    through the kernel, timed, launches counted; (b) lanes 0-63 through the
+    twin; (c) the same lanes with f64 perturbations; (d) HIFI_B_CPU lanes of
+    (b) on the CPU; (b)-(d) over the first HIFI_RERUN_S, against a kernel
+    run of the same lanes over it. Returns the summary's numbers."""
+    from nyx_tpu_torch import Frames
+    from nyx_tpu_torch.ephem import Almanac
+    from nyx_tpu_torch.io.gravity import GravityFieldData
+    from nyx_tpu_torch.mc import MonteCarlo
+
+    t_phase = time.perf_counter()
+    epoch = mvn.template.epoch
+    end = epoch + HIFI_SECONDS
+    with tempfile.TemporaryDirectory() as tmp:
+        egm, spks = hifi_files(Path(tmp), stor21, epoch)
+        field = GravityFieldData.from_egm2008(egm, 21, 21, frame=Frames.IAU_EARTH)
+        if not (np.array_equal(field.c_nm, stor21.c_nm) and np.array_equal(field.s_nm, stor21.s_nm)):
+            raise RuntimeError("hifi: the EGM2008 file did not read back the 21x21 coefficients")
+        alm = Almanac(spks)
+    t_files = time.perf_counter() - t_phase
+
+    def run(n, pert_precision, backend, dev, y0=None, until=end):
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = MonteCarlo(mvn, seed=42).run_until_epoch(
+            hifi_propagator(field, pert_precision, backend), alm, until, n, device=dev, _y0=y0)
+        _sync(dev)
+        return res, time.perf_counter() - t0
+
+    gp.pines_accel_cuda.launches = 0
+    gp.pines_accel_torch.cuda_calls = 0
+    res, wall = run(B_MAIN, "f32", "auto", device)
+    launches, twin_calls = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
+    _log(f"hifi ({_card_line()}), B={B_MAIN}, {HIFI_SECONDS:g} s (files {t_files:.2f} s): wall "
+         f"{wall:.3f} s, {res.n_ok / wall:.2f} traj/s, iterations {res.iterations}, mean accepted "
+         f"{float(np.mean(res.n_accepted)):.2f}, mean rejected {float(np.mean(res.n_rejected)):.2f}, "
+         f"n_ok/n_runs {res.n_ok}/{res.n_runs}, kernel launches {launches}, twin CUDA calls {twin_calls}")
+    if res.n_ok != B_MAIN or not np.isfinite(res.y_final).all():
+        raise RuntimeError(f"hifi: {res.n_ok}/{B_MAIN} lanes ok")
+    if device == "cuda" and (launches <= 0 or twin_calls != 0):
+        raise RuntimeError(f"hifi did not run through the kernel: {launches} launches, "
+                           f"{twin_calls} twin calls on CUDA")
+
+    y0, until = res.y_initial[:HIFI_B_TWIN], epoch + HIFI_RERUN_S
+    kernel, wall_kernel = run(HIFI_B_TWIN, "f32", "auto", device, y0, until)
+    twin, wall_twin = run(HIFI_B_TWIN, "f32", "torch", device, y0, until)
+    f64, wall_f64 = run(HIFI_B_TWIN, "f64", "auto", device, y0, until)
+    cpu, wall_cpu = run(HIFI_B_CPU, "f32", "torch", "cpu", y0[:HIFI_B_CPU], until)
+    if min(kernel.n_ok, twin.n_ok, f64.n_ok) < HIFI_B_TWIN or cpu.n_ok != HIFI_B_CPU:
+        raise RuntimeError(f"hifi reruns: {kernel.n_ok}, {twin.n_ok}, {f64.n_ok} of {HIFI_B_TWIN} and "
+                           f"{cpu.n_ok} of {HIFI_B_CPU} ok")
+
+    def gap(a, b):
+        return float(np.linalg.norm(a.y_final[:, :3] - b.y_final[: len(a.y_final), :3], axis=1).max())
+
+    d_twin, d_f64, d_cpu = gap(twin, kernel), gap(f64, twin), gap(cpu, twin)
+    _log(f"hifi reruns over {HIFI_RERUN_S:g} s (the kernel's {HIFI_B_TWIN} lanes {wall_kernel:.2f} s): (b) the "
+         f"twin {wall_twin:.2f} s, {twin.iterations} iterations, {d_twin:.3e} km from the kernel's; (c) f64 "
+         f"perturbations {wall_f64:.2f} s, {f64.iterations} iterations, {d_f64:.3e} km from (b); (d) the CPU's "
+         f"{HIFI_B_CPU} lanes {wall_cpu:.2f} s, {cpu.iterations} iterations, {d_cpu:.3e} km from (b)")
+    for label, d, tol in (("twin", d_twin, TWIN_FINAL_TOL_KM), ("f64 perturbations", d_f64, HIFI_F64_TOL_KM),
+                          ("CPU", d_cpu, TWIN_FINAL_TOL_KM)):
+        if not d < tol:
+            raise RuntimeError(f"hifi: the {label} run is {d} km from its reference run (bound {tol})")
+    _log(f"hifi phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, traj_per_s=res.n_ok / wall, wall=wall, iterations=res.iterations,
+                gaps_km=(d_twin, d_f64, d_cpu))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--duration-s", type=float, default=86_400.0,
@@ -3140,6 +3297,9 @@ def main() -> None:
     # phase 6l: the scan filter's modes on 6b's scene
     scan_modes = phase_scan_modes(gp, stor21, od)
 
+    # phase 6m: the file-driven high-fidelity Earth dynamics, f32 perturbations
+    hifi = phase_hifi(gp, stor21, mvn)
+
     # phase 7: summary
     _log(f"chip_smoke.py command time: {time.perf_counter() - _T_START:.1f} s")
     ms21, bound21, bound_by = k3["times"]["21x21"]
@@ -3204,6 +3364,8 @@ def main() -> None:
         "od_ensemble_wall_s": scan_modes["ensemble_wall"],
         "launches_od_ensemble": scan_modes["launches_ensemble"],
         "od_fixed_rows_per_s": scan_modes["fixed_rows_per_s"],
+        "launches_hifi": hifi["launches"],
+        "hifi_traj_per_s": hifi["traj_per_s"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

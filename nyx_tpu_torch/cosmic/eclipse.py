@@ -130,9 +130,9 @@ class ShadowModel:
 
     def _almanac(self):
         if self.almanac is None:
-            from ..ephem.almanac import Almanac
+            from ..ephem.almanac import default_almanac
 
-            self.almanac = Almanac()
+            self.almanac = default_almanac()
         return self.almanac
 
     def compute(self, orbit, almanac=None) -> EclipseState:

@@ -3,8 +3,9 @@
 A `Frame` is a (center body, orientation) pair plus optional gravitational
 parameter and shape. Orientation IDs follow NAIF conventions: 1 = J2000;
 `10000 + body` for the analytic IAU body-fixed frames (Earth, Moon, Mars,
-Sun); 3000 = ITRF93, which needs a binary PCK that the port cannot read,
-so its rotation raises as the reference's does without one.
+Sun); 3000 = ITRF93. No rotation is driven by a binary PCK: the BPC reader
+(`ephem/daf.py`) reads the files, but, as in the reference
+(nyx_tpu/cosmic/frames.py:76-79), ITRF93's rotation raises.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ..constants import EARTH_FLATTENING, GM_BY_NAIF, NAIF, RADIUS_BY_NAIF
 from ..errors import ConfigError
+from ..xmath import LastCall
 from . import rotations
 
 J2000_ORIENT = 1
@@ -33,6 +35,9 @@ _IAU_MODELS = {
     iau_orient(NAIF.MARS): rotations.iau_mars_dcm,
     iau_orient(NAIF.SUN): rotations.iau_sun_dcm,
 }
+
+
+_LAST_DCM = LastCall()
 
 
 @dataclass(frozen=True)
@@ -72,9 +77,11 @@ class Frame:
             eye = torch.eye(3, dtype=t_tdb_s.dtype, device=t_tdb_s.device)
             return eye.expand(t_tdb_s.shape + (3, 3))
         if o in _IAU_MODELS:
-            return _IAU_MODELS[o](t_tdb_s)
+            # the field and the tides of one EOM call rotate at the same epochs
+            return _LAST_DCM.get(o, t_tdb_s, lambda: _IAU_MODELS[o](t_tdb_s))
         if o == ITRF93_ORIENT:
-            raise ConfigError("ITRF93 requires a loaded binary PCK, which the port does not read")
+            raise ConfigError("ITRF93 has no orientation model: as in the reference, no rotation "
+                              "is driven by a binary PCK")
         raise ConfigError(f"no orientation model for frame orientation {o}")
 
     def __str__(self):

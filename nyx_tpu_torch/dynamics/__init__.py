@@ -20,6 +20,7 @@ from .sequence import (
     PropagatorConfig,
     SpacecraftSequence,
 )
+from .solid_tides import SolidTides, TidalPerturber
 from .spacecraft_dyn import SpacecraftDynamics
 from .srp import SolarPressure
 
@@ -31,6 +32,8 @@ __all__ = [
     "Drag",
     "AtmDensity",
     "SolarPressure",
+    "SolidTides",
+    "TidalPerturber",
     "GuidanceLaw",
     "LocalFrame",
     "Ruggiero",

@@ -52,12 +52,14 @@ class PointMasses:
 
     def accel(self, ctx: EomContext, t_tdb, r, v):
         a = torch.zeros_like(r)
-        for body in self.bodies:
-            if body == ctx.frame.center:
-                continue
+        bodies = [b for b in self.bodies if b != ctx.frame.center]
+        if not bodies:
+            return a
+        # every body's position in one Clenshaw pass ([P, B, 3] wrt center, f64)
+        positions = ctx.table.position([ctx.body_index(b) for b in bodies], t_tdb)
+        for body, rb in zip(bodies, positions):
             mu = GM_BY_NAIF[body]
             idx = ctx.body_index(body)
-            rb = ctx.table.position(idx, t_tdb)  # [B, 3] body wrt center, f64
             if self.light_time_correction:
                 dt = vector_norm(rb, dim=-1) / SPEED_OF_LIGHT_KM_S
                 rb = ctx.table.position(idx, t_tdb - dt)

@@ -3,10 +3,10 @@
 Torch port of nyx_tpu/dynamics/sequence.py:30-264 (the reference's
 SpacecraftSequence, dynamics/sequence/mod.rs:48-230; Phase, PropagatorConfig
 and Dynamics, config.rs:44-157; DiscreteEvent, discrete_event.rs:29-60).
-The dynamics a configuration names are those the port has: point masses,
-a spherical-harmonic field read from a .cof file, SRP and exponential drag;
-solid tides, the 1976 standard atmosphere and EGM2008 files raise
-ConfigError. Propagators and whole sequences also load from Dhall documents
+A configuration names point masses, a spherical-harmonic field read from
+a .cof or (by its file name) an EGM2008 file, solid tides, SRP, and
+exponential or 1976 standard-atmosphere drag. Propagators and whole
+sequences also load from Dhall documents
 (`load_dhall_propagator`, `load_dhall_sequence`; the reference's
 sequence.py:265-473, parsed by `io/dhall.py`).
 """
@@ -25,6 +25,7 @@ from ..time import Epoch
 from .drag import Drag
 from .gravity import Harmonics
 from .orbital import OrbitalDynamics, PointMasses
+from .solid_tides import SolidTides
 from .spacecraft_dyn import SpacecraftDynamics
 from .srp import SolarPressure
 
@@ -86,7 +87,7 @@ class DynamicsConfig:
     gravity_field: Optional[dict] = None  # {path, degree, order, gunzipped, frame, precision}
     solid_tides: bool = False
     solar_pressure: bool = False
-    drag: Optional[str] = None  # 'exp'
+    drag: Optional[str] = None  # 'exp' | 'stdatm' (any other value: 'exp', as the reference)
 
     def build(self, almanac=None) -> SpacecraftDynamics:
         models = []
@@ -97,21 +98,19 @@ class DynamicsConfig:
 
             g = self.gravity_field
             path = str(g["path"])
-            if "egm" in path.lower().rsplit("/", 1)[-1]:
-                raise ConfigError("EGM2008 files are not read by the port; use a .cof field")
-            stor = GravityFieldData.from_cof(path, g.get("degree", 8), g.get("order", 8),
-                                             g.get("gunzipped", True), g.get("frame", Frames.IAU_EARTH))
+            loader = (GravityFieldData.from_egm2008 if "egm" in path.lower().rsplit("/", 1)[-1]
+                      else GravityFieldData.from_cof)
+            stor = loader(path, g.get("degree", 8), g.get("order", 8),
+                          g.get("gunzipped", True), g.get("frame", Frames.IAU_EARTH))
             models.append(Harmonics.from_stor(stor, g.get("precision", "f64")))
         if self.solid_tides:
-            raise ConfigError("solid tides are not ported")
+            models.append(SolidTides.earth_moon_system())
         orbital = OrbitalDynamics.from_models(models, self.frame)
         forces = []
         if self.solar_pressure:
             forces.append(SolarPressure.default())
         if self.drag:
-            if self.drag == "stdatm":
-                raise ConfigError("the 1976 standard atmosphere is not ported; use drag='exp'")
-            forces.append(Drag.earth_exp())
+            forces.append(Drag.std_atm1976() if self.drag == "stdatm" else Drag.earth_exp())
         return SpacecraftDynamics.from_models(orbital, forces)
 
 

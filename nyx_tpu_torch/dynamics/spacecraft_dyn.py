@@ -7,7 +7,9 @@ with the STM over `[B, 90]` states. Guided dynamics append the guidance
 mode as a trailing column (`[B, 10]`, or `[B, 91]` with the STM), which
 the post-step hook updates.
 The force models evaluate in float32 and their sum is cast back to the
-state dtype.
+state dtype. With `pert_precision="f32"` the orbital perturbations (the
+field, third bodies, tides) also run on float32 r and v, and their sum is
+cast back; two-body stays at the state dtype.
 """
 
 from __future__ import annotations
@@ -29,11 +31,21 @@ STM_DIM = CORE_DIM * CORE_DIM
 
 class SpacecraftDynamics:
     def __init__(self, orbital_dyn: OrbitalDynamics, force_models: Sequence = (),
-                 guidance=None, decrement_mass: bool = True):
+                 guidance=None, decrement_mass: bool = True, pert_precision: str = "f64"):
         self.orbital_dyn = orbital_dyn
         self.force_models = tuple(force_models)
         self.guidance = guidance
         self.decrement_mass = decrement_mass
+        #: "f64": every acceleration at the state dtype. "f32": two-body and
+        #: the state update stay f64, and `orbital_dyn.perturbation_accel`
+        #: runs on r and v cast to f32 (the reference's
+        #: spacecraft_dyn.py:143-152). Its models keep the reference's
+        #: promotion: an f64-precision field then runs at f32 (through the
+        #: kernel on the card), while third bodies and tides, fed f64 tables
+        #: and rotations, come back f64.
+        if pert_precision not in ("f64", "f32"):
+            raise ConfigError(f"unknown pert_precision {pert_precision!r}")
+        self.pert_precision = pert_precision
 
     # the reference's constructors SpacecraftDynamics::new / from_models
     @classmethod
@@ -49,6 +61,8 @@ class SpacecraftDynamics:
         return cls(orbital_dyn, (), guidance, decrement_mass)
 
     def with_guidance_law(self, guidance) -> "SpacecraftDynamics":
+        # as the reference's (spacecraft_dyn.py:66-69), pert_precision is
+        # not carried over: the guided copy runs its perturbations at f64
         return SpacecraftDynamics(self.orbital_dyn, self.force_models, guidance, self.decrement_mass)
 
     @property
@@ -73,13 +87,18 @@ class SpacecraftDynamics:
                 out.append(b)
         return out
 
-    def build_context(self, epoch0: Epoch, duration_s: float, almanac, *, device) -> EomContext:
+    def build_context(self, epoch0: Epoch, duration_s: float, almanac=None, *, device) -> EomContext:
         """Constants of one propagation: its TDB start and, when a model
-        needs bodies, their Chebyshev table over the arc on `device`."""
+        needs bodies, their Chebyshev table over the arc on `device`, from
+        `almanac` or, if None, `default_almanac()`."""
         frame = self.orbital_dyn.frame
         bodies = self.required_bodies()
         table = None
         if bodies:
+            if almanac is None:
+                from ..ephem.almanac import default_almanac
+
+                almanac = default_almanac()
             end = epoch0 + max(duration_s, 0.0)
             start = epoch0 + min(duration_s, 0.0)
             table = almanac.build_table(bodies, frame.center, start, end, device=device)
@@ -151,6 +170,7 @@ class SpacecraftDynamics:
     def _core_eom(self, thruster):
         guidance = self.guidance
         decrement_mass = self.decrement_mass
+        pert_f32 = self.pert_precision == "f32"
 
         def eom(t_rel, y9, ctx, p, mode=None):
             t_tdb = ctx.epoch0_tdb + t_rel
@@ -160,7 +180,13 @@ class SpacecraftDynamics:
             cd = y9[..., 7]
             m_prop = y9[..., 8]
             mass = p["dry_mass_kg"] + m_prop
-            a = self.orbital_dyn.accel(ctx, t_tdb, r, v)
+            if pert_f32 and r.dtype == torch.float64 and self.orbital_dyn.models:
+                a = self.orbital_dyn.two_body_accel(ctx, r)
+                ap = self.orbital_dyn.perturbation_accel(ctx, t_tdb, r.to(torch.float32),
+                                                         v.to(torch.float32))
+                a = a + ap.to(r.dtype)
+            else:
+                a = self.orbital_dyn.accel(ctx, t_tdb, r, v)
             if self.force_models:
                 # SRP and drag are <= ~1e-9 km/s^2: f32 rounding of the force
                 # lands far below the integrator tolerance on the total

@@ -1,3 +1,4 @@
-from .almanac import Almanac, EphemTable
+from .almanac import Almanac, EphemTable, default_almanac
+from .daf import BPC, DAF, SPK
 
-__all__ = ["Almanac", "EphemTable"]
+__all__ = ["Almanac", "EphemTable", "default_almanac", "DAF", "SPK", "BPC"]

@@ -10,8 +10,9 @@ sample_values, resample, rebuild, filter_by_*) and its parquet and OEM
 export (io/export.py); the frame transform (`to_frame`: a centre change
 through the almanac, a rotation through J2000 with the transport term
 from `torch.func.jvp` of the DCM), the ground track and the RIC
-difference to another trajectory (nyx_tpu/md/trajectory.py:238-352).
-`from_bsp`, `to_ephemeris` and `from_parquet` are not ported yet.
+difference to another trajectory (nyx_tpu/md/trajectory.py:238-352);
+`from_bsp` (sampling an SPK through the almanac), `to_ephemeris` (an SPK
+type-3 BSP through io/spk.py) and `from_parquet` (:360-417).
 """
 
 from __future__ import annotations
@@ -327,6 +328,52 @@ class Trajectory:
         from ..io.export import traj_to_oem
 
         return traj_to_oem(self, path, cfg)
+
+    def to_ephemeris(self, path, target: int = -10_000, degree: int = 11,
+                     intlen_s: float | None = None) -> str:
+        """Export as a SPICE BSP (one SPK type-3 Chebyshev segment), as the
+        reference's to_ephemeris -> ANISE BSP (sc_traj.rs:158)."""
+        from ..io.spk import traj_to_bsp
+
+        return traj_to_bsp(self, path, target, degree, intlen_s)
+
+    @classmethod
+    def from_bsp(cls, almanac, target: int, center: int, frame, template, start, end,
+                 step_s: float = 300.0) -> "Trajectory":
+        """A Trajectory sampled every `step_s` from a loaded SPK through
+        `almanac.state` (sc_traj.rs from_bsp:90-134); `template` gives the
+        columns past the orbit, and `frame` the states' frame."""
+        n = int((end - start).to_seconds() / step_s) + 1
+        ts = np.arange(n, dtype=np.float64) * step_s
+        base = template.to_vector()
+        ys = np.zeros((n, base.shape[0]))
+        for i, t in enumerate(ts):
+            r, v = almanac.state(target, center, start + float(t))
+            row = base.copy()
+            row[0:3] = r
+            row[3:6] = v
+            ys[i] = row
+        return cls(start, ts, ys, template.with_orbit(replace(template.orbit, frame=frame)))
+
+    @classmethod
+    def from_parquet(cls, path, template) -> "Trajectory":
+        """A trajectory written by to_parquet (it needs the cartesian x..vz
+        columns; sc_traj.rs:212 parity). `template` gives the frame and
+        the spacecraft's constants."""
+        import pyarrow.parquet as pq
+
+        table = pq.read_table(path)
+        missing = [c for c in ("epoch_tai_s", "x", "y", "z", "vx", "vy", "vz")
+                   if c not in table.column_names]
+        if missing:
+            raise TrajError(f"parquet trajectory missing columns: {missing}")
+        tai = np.asarray(table["epoch_tai_s"])
+        epoch0 = Epoch.from_tai_seconds_j2000(float(tai[0]))
+        ts = tai - tai[0]
+        ys = np.tile(template.to_vector(), (len(ts), 1))
+        for j, c in enumerate(("x", "y", "z", "vx", "vy", "vz")):
+            ys[:, j] = np.asarray(table[c])
+        return cls.from_capture(epoch0, ts, ys, template)
 
     def __str__(self):
         return f"Trajectory from {self.start_epoch} to {self.end_epoch} ({len(self.ts)} states)"

@@ -751,7 +751,8 @@ class ScanKalmanOD:
 
     def _stm_dynamics(self, dyn):
         """The dynamics of stage 2: Harmonics models get
-        jvp_degree=stm_jvp_degree (unless already cut lower)."""
+        jvp_degree=stm_jvp_degree (unless already cut lower); the guidance
+        law, mass decrement and perturbation precision are kept."""
         q = self.stm_jvp_degree
         if q is None:
             return dyn
@@ -763,7 +764,8 @@ class ScanKalmanOD:
         )
         if models == dyn.orbital_dyn.models:
             return dyn
-        return SpacecraftDynamics(OrbitalDynamics(models, dyn.orbital_dyn.frame), dyn.force_models)
+        return SpacecraftDynamics(OrbitalDynamics(models, dyn.orbital_dyn.frame), dyn.force_models,
+                                  dyn.guidance, dyn.decrement_mass, dyn.pert_precision)
 
     def _snc_tables(self):
         """The process noises' tables on the device, made once: diagonals,

@@ -7,9 +7,9 @@ with the filter-smoother consistency ratios and, given the devices, the
 postfits recomputed at the smoothed states on a device), the residual
 statistics (`residual_rms`, `postfit_rms`, `ratios`,
 `percent_within_sigmas`, `ks_normality`, `nis`, `nis_test`,
-`nis_consistency`, `nees`), `to_traj` and the parquet export and import.
-The records are host numpy, as the reference's. Not ported:
-`to_ephemeris`, which needs the SPK writer (ROADMAP Queue 1 item 6).
+`nis_consistency`, `nees`), `to_traj`, `to_ephemeris` (a BSP through
+io/spk.py) and the parquet export and import. The records are host numpy,
+as the reference's.
 """
 
 from __future__ import annotations
@@ -358,9 +358,10 @@ class ODSolution:
         )
 
     def to_ephemeris(self, path, target: int = -10_000, degree: int = 11):
-        """Not ported: writing SPK files is ROADMAP Queue 1 item 6."""
-        raise NotImplementedError(
-            "ODSolution.to_ephemeris is not ported: it needs the SPK writer (ROADMAP Queue 1 item 6)")
+        """Write the estimated trajectory as a SPICE BSP segment
+        (solution/mod.rs to_ephemeris parity): filtered states -> Traj ->
+        SPK type 3."""
+        return self.to_traj().to_ephemeris(path, target=target, degree=degree)
 
     def to_parquet(self, path, local_frame: Optional[str] = None) -> str:
         """Export estimates + covariances (+residuals) to parquet

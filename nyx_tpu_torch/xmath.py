@@ -43,3 +43,34 @@ def linear_angle_deg(base_deg, rate_deg_per_day, d_days):
 def norm(x, keepdim: bool = False):
     """Euclidean norm over the last axis."""
     return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=keepdim))
+
+
+class LastCall:
+    """The last value of a function of an epoch tensor `t`, per key, reused
+    while the same tensor object comes back unmodified.
+
+    The models of one EOM call share its epochs' tensor, so they share, by
+    this, the body-fixed rotation and the ephemeris lookups that each would
+    compute again (each torch operation is a kernel launch from the host).
+    A new tensor, or one written in place since, recomputes."""
+
+    def __init__(self):
+        self._last = {}
+
+    def peek(self, key, t):
+        """The value kept for `key` if it was computed from `t` as it is, else None."""
+        hit = self._last.get(key)
+        if hit is not None and hit[0] is t and hit[1] == getattr(t, "_version", None):
+            return hit[2]
+        return None
+
+    def put(self, key, t, value):
+        self._last[key] = (t, getattr(t, "_version", None), value)
+
+    def get(self, key, t, fn):
+        """The value kept for `key` and `t`, or fn() kept as it."""
+        out = self.peek(key, t)
+        if out is None:
+            out = fn()
+            self.put(key, t, out)
+        return out

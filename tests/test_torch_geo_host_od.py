@@ -35,6 +35,7 @@ try:
     from nyx_tpu.dynamics import OrbitalDynamics as ROrbitalDynamics
     from nyx_tpu.dynamics import SpacecraftDynamics as RSpacecraftDynamics
     from nyx_tpu.ephem.almanac import Almanac as RAlmanac
+    from nyx_tpu.ephem.daf import SPK as RSPK
     from nyx_tpu.od import BatchLeastSquares as RBatchLeastSquares
     from nyx_tpu.od import GroundAsset as RGroundAsset
     from nyx_tpu.od import GroundPntProcess as RGroundPntProcess
@@ -418,7 +419,8 @@ def test_solution_filters_and_parquet_match_reference(leo, tmp_path):
     (STATS_REL, 1e-6 km); the parquet export reads back (:1246: states within 1e-9
     km, covariances within 1e-15, the gain columns, the smoother's ratios)
     and holds the reference's own export's columns and values (each
-    within STATS_REL of its column's scale)."""
+    within STATS_REL of its column's scale); `to_ephemeris` writes the BSP
+    segment the reference's does, its final state within 10 POS_KM."""
     sol, ref, _ = _host_case(leo, "ckf")
     name = leo["st"][0].name
     for sub, sub_r in ((sol.drop_time_updates(), ref.drop_time_updates()),
@@ -463,8 +465,15 @@ def test_solution_filters_and_parquet_match_reference(leo, tmp_path):
     orig = [f for f in sm.filter_smoother_ratios if f is not None]
     got = [f for f in back2.filter_smoother_ratios if f is not None]
     assert len(orig) == len(got)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        sol.to_ephemeris(tmp_path / "sol.bsp")
+    bsp, bsp_r = sol.to_ephemeris(tmp_path / "sol.bsp"), ref.to_ephemeris(tmp_path / "sol_ref.bsp")
+    seg, seg_r = P.ephem.SPK(bsp).segments[0], RSPK(bsp_r).segments[0]
+    assert (seg.target, seg.center, seg.data_type) == (seg_r.target, seg_r.center, seg_r.data_type) == \
+        (-10_000, NAIF.EARTH, 3)
+    assert abs(seg.t_start - seg_r.t_start) < 1e-6 and abs(seg.t_stop - seg_r.t_stop) < 1e-6
+    r_bsp = P.ephem.Almanac([bsp]).state(-10_000, NAIF.EARTH, sol.final_estimate.epoch)[0]
+    r_bsp_r = RAlmanac([bsp_r]).state(-10_000, NAIF.EARTH, ref.final_estimate.epoch)[0]
+    # the degree-11 fit carries the trajectories' POS_KM gap (4.8e-6 km measured)
+    assert np.abs(r_bsp - np.asarray(r_bsp_r)).max() < 10 * POS_KM
 
 
 @needs_jax

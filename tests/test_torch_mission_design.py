@@ -650,7 +650,8 @@ def test_sequence_matches_reference():
     final states within 1e-9 km of the reference's; the burn meets the
     rocket equation within 1e-6 kg; until_phase stops before the burn;
     validation refuses a timeline without a Terminate or with an unknown
-    propagator."""
+    propagator; a configuration with solid tides builds the reference's
+    models."""
     trajs = {}
     for M, D in ((R, RD), (P, PD)):
         orbit = M.Orbit.keplerian(8000.0, 0.01, 30.0, 0, 0, 0, _epoch(M), M.Frames.EME2000)
@@ -673,5 +674,6 @@ def test_sequence_matches_reference():
         PD.SpacecraftSequence(seq={e0: PD.Phase.Activity("a", "two_body")}, propagators={"two_body": two}).validate()
     with pytest.raises(ConfigError, match="no propagator"):
         PD.SpacecraftSequence(seq={e0: PD.Phase.Activity("a", "nope"), e0 + 1.0: PD.Phase.Terminate()}).validate()
-    with pytest.raises(ConfigError):
-        PD.DynamicsConfig(solid_tides=True).build()
+    tides = PD.DynamicsConfig(solid_tides=True).build().orbital_dyn.models
+    assert [type(m).__name__ for m in tides] == [type(m).__name__ for m in
+                                                 RD.DynamicsConfig(solid_tides=True).build().orbital_dyn.models]
