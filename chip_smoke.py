@@ -104,7 +104,8 @@ raises and exits non-zero:
    the targeter from tests/test_targeting.py's LEO (sma half an orbit
    later by FD and by dual, the VNC sma and ecc pair, a position target)
    in two-body, then under 21x21 JGM3 split at 1e-10 through the kernel
-   (launches counted, no twin primal call on CUDA), and FD's and the
+   (the sma solves a quarter orbit later, a depth cut that paid for phase
+   6n; launches counted, no twin primal call on CUDA), and FD's and the
    dual's first Newton iterations towards the same sma a sixteenth of an
    orbit later through the kernel and the twin (corrections within 1e-12
    km/s; FD's whole solve through the twin, the dual's towards a quarter
@@ -180,6 +181,21 @@ raises and exits non-zero:
    300 s, lanes 0-63 (b) through the kernel and the twin (within 1e-3
    km), (c) with f64 perturbations (within 1 m of (b)), (d) 16 of them on
    the CPU (within 1e-3 km of (b)); the depth cuts of 6h paid for it;
+6n. ensembles sharded over a mesh of devices (parallel/mesh.py), printed
+   as "Mesh phase": the mesh of every card present and 3 shards of one
+   card, each shard a host thread under a CUDA stream of its own; (a)
+   Config 2 at B = 10,000 over the day's first hour unsharded, on every
+   card and on the 3 shards (10,000 is no multiple of 3: padding), timed,
+   launches counted by shard and summed, 10,000/10,000 ok and every final
+   within 1e-9 km of the unsharded run's, the shards of the one card in
+   turn; (b) Config 2's Encke mode (ABM) at B = 20 over 1 h on the shards
+   against one device, inside `tracing.profile_trace` over the card's
+   activity, the trace's Pines kernels as many as the launch counter
+   moved; (c) `process_arc_batch` over 8 filters (CKF,
+   f64 algebra) on 6b's arc's first 2 h on the shards against the
+   unsharded batch (finals within 1e-9 km, the same rejections); the
+   depth cut of 6h(a) paid for it; multi-card scaling is not measured on
+   a one-card machine;
 7. print the command time and the summary.
 
 The second-to-last line of output is the kernels' JSON summary, the last
@@ -198,6 +214,7 @@ import dataclasses
 import importlib
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -340,6 +357,9 @@ ENCKE_TWIN_TOL_KM = 1e-9
 # targeting delta-v (test_targeting.py:45-47), km/s.
 MD_EPOCH = (2020, 1, 1)
 MD_SPLIT_TOL = 1e-10
+# the split field's sma solves (FD and dual) aim this much of an orbit
+# ahead (the reference's half until phase 6n needed the time)
+MD_SPLIT_SMA_ORBITS = 0.25
 MD_TWIN_TOL_KM_S = 1e-12
 MD_DUAL_FD_KM_S = 1e-6
 MD_ROCKET_KG = 1e-6
@@ -438,9 +458,10 @@ EX06_HOST_SCAN_KM = 1.1 * 4.728e-3
 EX06_HOST_TWIN_S = 180.0
 # the port's host loop on the CPU, run from the same start on the card's
 # rows of the arc's first EX06_HOST_CPU_S (its 31 rows over 1,800 s until
-# the scan filter's modes needed the time: 23.7-24.1 s on the CPU), its
-# final estimate against the card's at that row, km
-EX06_HOST_CPU_S = 900.0
+# the scan filter's modes needed the time: 23.7-24.1 s on the CPU; 16 rows
+# over 900 s, 20.7-22.6 s and 5.055e-7 km apart, until the mesh phase did),
+# its final estimate against the card's at that row, km
+EX06_HOST_CPU_S = 450.0
 EX06_HOST_CPU_KM = 1e-6
 # Phase 6l, the scan filter's modes on 6b's scene: (a) the parallel filter's
 # gate parity over the arc's first SCAN_GATE_S (~3 % of the range rows moved
@@ -492,6 +513,19 @@ OD_F32_SIGMA_REL = 0.05
 # fused multiply-add as two operations; the kernel is built without
 # contraction, so each of its operations is one instruction at half that.
 F32_OPS_PER_S = 67e12 / 2
+# Phase 6n, ensembles on a mesh: Config 2 over the day's first hour; the
+# shards of one card (B_MAIN = 10,000 is no multiple of 3, so the padding
+# runs); every sharded final within MESH_TOL_KM of its unsharded run's.
+# Depth cuts, for the script's time: Encke's 2 h to 1 h, the filters' 6 h
+# to 2 h
+MESH_SECONDS = 3600.0
+MESH_SHARDS = 3
+MESH_TOL_KM = 1e-9
+MESH_ENCKE_B = 20
+MESH_ENCKE_SECONDS = 3600.0
+MESH_OD_FILTERS = 8
+MESH_OD_SECONDS = 2 * 3600.0
+
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -1956,15 +1990,16 @@ def _md_solve(label, fn, sync):
 
 
 def _md_targeter_scenes(prop, leo, epoch, device, sync, tag,
-                        names=("sma_fd", "sma_dual", "vnc", "position")):
+                        names=("sma_fd", "sma_dual", "vnc", "position"), sma_orbits: float = 0.5):
     """Scene (a)'s solves (tests/test_targeting.py:80-141) through `prop`:
-    sma 8,000 km half an orbit later by FD and by dual, the VNC sma and ecc
-    pair 2,000 s later, the apoapsis radius by position 1,000 s later; those
-    in `names`. Returns {name: (solution, wall)}."""
+    sma 8,000 km `sma_orbits` of an orbit later (the reference's half) by
+    FD and by dual, the VNC sma and ecc pair 2,000 s later, the apoapsis
+    radius by position 1,000 s later; those in `names`. Returns {name:
+    (solution, wall)}."""
     from nyx_tpu_torch.md.objective import Objective
     from nyx_tpu_torch.md.opti import Targeter
 
-    half = epoch + leo.orbit.period_s / 2.0
+    half = epoch + leo.orbit.period_s * sma_orbits
     sma = [Objective.within_tolerance("sma", 8000.0, 1e-3)]
     scenes = {
         "sma_fd": (sma, lambda o: Targeter.delta_v(prop, o).try_achieve_fd(leo, epoch, half, device=device)),
@@ -1992,8 +2027,9 @@ def phase_mission_design(gp, stor21, device="cuda"):
     (a) the targeter from tests/test_targeting.py:80-141's LEO: sma 8,000 km
         half an orbit later by FD and by dual, the VNC pair, the position
         target; in two-body (RK89 at 1e-12), then under the 21x21 JGM3
-        split field at 1e-10 through the kernel (its launches counted from
-        0, no twin primal call on CUDA), then FD's and the dual's first
+        split field at 1e-10 through the kernel, the sma solves a quarter
+        orbit later (its launches counted from 0, no twin primal call on
+        CUDA), then FD's and the dual's first
         Newton iterations towards the same sma a sixteenth of an orbit
         later through the kernel and with backend="torch";
     (b) finite-burn targeting, `thrust_dir` and `thrust_dir_rate`
@@ -2050,7 +2086,11 @@ def phase_mission_design(gp, stor21, device="cuda"):
     gp.pines_accel_cuda.launches = 0
     gp.pines_accel_torch.cuda_calls = 0
     t0 = time.perf_counter()
-    akern = _md_targeter_scenes(split_prop("auto"), leo, epoch, device, sync, "21x21 split, kernel")
+    # the split FD and dual solves aim a quarter orbit ahead, a depth cut
+    # of the reference's half (the dual's half orbit took 61.0 s) that paid
+    # for phase 6n; the two-body solves keep the half
+    akern = _md_targeter_scenes(split_prop("auto"), leo, epoch, device, sync, "21x21 split, kernel",
+                                sma_orbits=MD_SPLIT_SMA_ORBITS)
     split_wall = time.perf_counter() - t0
     launches, twin_calls = gp.pines_accel_cuda.launches, gp.pines_accel_torch.cuda_calls
     # the twin witnesses: the first Newton iteration of FD and of the dual
@@ -3175,6 +3215,155 @@ def phase_hifi(gp, stor21, mvn, device="cuda"):
                 gaps_km=(d_twin, d_f64, d_cpu))
 
 
+def phase_mesh(gp, leo, od, stor21, device="cuda"):
+    """Phase 6n, ensembles sharded over a mesh of devices (parallel/mesh.py),
+    printed as "Mesh phase": the mesh of every card present
+    (`ensemble_mesh()`) and a mesh of MESH_SHARDS shards of one card, where
+    each shard runs in a host thread of its own under a CUDA stream of its
+    own, the shards of one card in turn. (a) Config 2 at B_MAIN over MESH_SECONDS (`leo`: main()'s
+    propagator factory, draws and almanac) unsharded, on the mesh of every
+    card and on the shards (B_MAIN is no multiple of MESH_SHARDS, so the
+    padding runs), timed, launches counted by shard and summed, every lane
+    ok, every final within MESH_TOL_KM of the unsharded run's; (b) Config
+    2's Encke mode (ABM) at MESH_ENCKE_B over MESH_ENCKE_SECONDS on the
+    shards against one device, inside `tracing.profile_trace` over the
+    card's activity only (each shard a named region), the trace's Pines
+    kernels as many as the launch counter moved; (c) `process_arc_batch`
+    over MESH_OD_FILTERS estimates (6b's and draws from its covariance) on
+    6b's arc's first MESH_OD_SECONDS (`od`, phase_od's return), CKF at f64
+    algebra (at f32 the batch width moves
+    the estimates by ~1e-5 km: cuBLAS and cuSOLVER pick their algorithm
+    by batch size), on the shards against the unsharded batch: finals
+    within MESH_TOL_KM, the same rejections. Every run through the kernel,
+    no twin primal call on CUDA. With one card present, multi-card scaling
+    is not measured. Returns the summary's numbers."""
+    from nyx_tpu_torch import tracing
+    from nyx_tpu_torch.mc import MonteCarlo
+    from nyx_tpu_torch.od import KfEstimate, MeasurementType, ScanKalmanOD
+    from nyx_tpu_torch.parallel import Mesh, ensemble_mesh
+
+    t_phase = time.perf_counter()
+    card = torch.device(device) if device == "cpu" else torch.device("cuda", 0)
+    shards = Mesh((card,) * MESH_SHARDS)
+    cards = ensemble_mesh() if device == "cuda" else Mesh((card,))
+    epoch = leo.mvn.template.epoch
+
+    def counted(label, fn):
+        """fn() timed with the kernel's counters reset before it: (its
+        value, wall, launches, launches by host thread); raises unless it
+        ran the kernel, never the twin's primal on CUDA, and the threads'
+        launches sum to the counter's."""
+        gp.pines_accel_cuda.launches = 0
+        gp.pines_accel_cuda.launches_by_thread.clear()
+        gp.pines_accel_torch.cuda_calls = 0
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        wall, launches = time.perf_counter() - t0, gp.pines_accel_cuda.launches
+        by_thread = dict(sorted(gp.pines_accel_cuda.launches_by_thread.items()))
+        if launches <= 0 or gp.pines_accel_torch.cuda_calls != 0:
+            raise RuntimeError(f"mesh {label} did not run through the kernel: {launches} launches, "
+                               f"{gp.pines_accel_torch.cuda_calls} twin primal calls on CUDA")
+        if sum(by_thread.values()) != launches:
+            raise RuntimeError(f"mesh {label}: the threads' launches {by_thread} do not sum to {launches}")
+        return out, wall, launches, by_thread
+
+    def gap_km(a, b):
+        return float(np.linalg.norm(np.asarray(a)[:, :3] - np.asarray(b)[:, :3], axis=1).max())
+
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    _log(f"Mesh phase ({_card_line()}; {n_cards} card(s)"
+         f"{'' if n_cards > 1 else ': multi-card scaling is not measured with one card'}):")
+    # (a) Config 2 at full width: unsharded, every card, MESH_SHARDS shards of one card
+    t_part = time.perf_counter()
+    prop = leo.propagator("auto")
+    runs = {}
+    for label, mesh in (("unsharded", None), (f"ensemble_mesh() of {cards.size} card(s)", cards),
+                        (f"{MESH_SHARDS} shards of {card}", shards)):
+        res, wall, launches, by_thread = counted(f"(a) {label}", lambda m=mesh: MonteCarlo(
+            leo.mvn, seed=42).run_until_epoch(prop, leo.almanac, epoch + MESH_SECONDS, B_MAIN,
+                                              mesh=m, device=device))
+        if res.n_ok != B_MAIN or res.n_runs != B_MAIN or not np.isfinite(res.y_final).all():
+            raise RuntimeError(f"mesh (a) {label}: {res.n_ok}/{res.n_runs} lanes ok")
+        if mesh is not None and len(by_thread) != mesh.size:
+            raise RuntimeError(f"mesh (a) {label}: launches from {sorted(by_thread)}, not {mesh.size} shards")
+        d = 0.0 if mesh is None else gap_km(res.y_final, runs["unsharded"][0].y_final)
+        runs[label] = (res, wall, launches, by_thread, d)
+        _log(f"  (a) Config 2, B={B_MAIN}, {MESH_SECONDS:g} s, {label}: wall {wall:.3f} s, "
+             f"{B_MAIN / wall:.2f} traj/s, iterations {res.iterations}, n_ok {res.n_ok}/{res.n_runs}, "
+             f"kernel launches {launches} ({', '.join(f'{k} {v}' for k, v in by_thread.items())}), "
+             f"finals {d:.3e} km from the unsharded run's")
+        if not d <= MESH_TOL_KM:
+            raise RuntimeError(f"mesh (a) {label}: finals {d} km from the unsharded run (bound {MESH_TOL_KM})")
+    wall_a = time.perf_counter() - t_part
+
+    # (b) Config 2's Encke mode on the shards, profiled
+    t_part = time.perf_counter()
+    mc = MonteCarlo(leo.mvn, seed=42)
+    end_e = epoch + MESH_ENCKE_SECONDS
+    (plain_e, wall_pe, launches_pe, _) = counted("(b) unsharded", lambda: mc.run_until_epoch_encke(
+        prop, leo.almanac, end_e, MESH_ENCKE_B, integ="abm", device=card))
+    with tempfile.TemporaryDirectory() as tmp:
+        # the card's activity only (host_tracer_level 0): the guard reads
+        # only the kernels
+        with tracing.profile_trace(tmp, 0 if device == "cuda" else 1,
+                                   cuda=device == "cuda") as session:
+            (enc, wall_e, launches_e, by_thread_e) = counted("(b) sharded", lambda: mc.run_until_epoch_encke(
+                prop, leo.almanac, end_e, MESH_ENCKE_B, integ="abm", mesh=shards))
+            t_stop = time.perf_counter()
+        t_read = time.perf_counter()
+        data = session.trace_path.read_bytes()
+        trace_mb = len(data) / 1e6
+        traced = len(re.findall(rb'"cat":\s*"kernel",\s*"name":\s*"[^"]*pines_kernel', data))
+        regions = sorted({m.decode() for m in re.findall(rb'"name":\s*"(mc encke shard \d+ on [^"]+)"', data)})
+        del data
+    t_trace, t_read = t_read - t_stop, time.perf_counter() - t_read
+    d_e = gap_km(enc.y_final, plain_e.y_final)
+    _log(f"  (b) Config 2's Encke (ABM), B={MESH_ENCKE_B}, {MESH_ENCKE_SECONDS:g} s: unsharded {wall_pe:.3f} s "
+         f"(the reference's nominal built in it), {launches_pe} launches; {MESH_SHARDS} shards {wall_e:.3f} s "
+         f"under the profiler, {launches_e} launches ({', '.join(f'{k} {v}' for k, v in by_thread_e.items())}); "
+         f"the trace ({trace_mb:.1f} MB; the profiler's stop and export {t_trace:.1f} s, its read {t_read:.1f} s) "
+         f"lists {traced} Pines kernels and the shard regions {regions or 'none (not attributed)'}; "
+         f"finals {d_e:.3e} km from the unsharded run's")
+    if enc.n_ok != MESH_ENCKE_B or plain_e.n_ok != MESH_ENCKE_B or not d_e <= MESH_TOL_KM:
+        raise RuntimeError(f"mesh (b): {enc.n_ok}/{MESH_ENCKE_B} ok, finals {d_e} km apart")
+    if device == "cuda" and traced != launches_e:
+        raise RuntimeError(f"mesh (b): the trace lists {traced} Pines kernels, the counter {launches_e}")
+    wall_b = time.perf_counter() - t_part
+
+    # (c) an ensemble of filters on the shards
+    t_part = time.perf_counter()
+    types = (MeasurementType.RANGE_KM, MeasurementType.DOPPLER_KM_S)
+    head = _head(od["arc"], MESH_OD_SECONDS)
+    truth, est0 = od["truth"], od["est0"]
+    draws = np.random.default_rng(SCAN_ENSEMBLE_SEED).multivariate_normal(
+        np.zeros(9), est0.covar, size=MESH_OD_FILTERS - 1)
+    ests = [est0] + [KfEstimate.from_covar(truth.set_vector(truth.epoch, truth.to_vector() + d),
+                                           est0.covar) for d in draws]
+    filt = ScanKalmanOD(_od_propagator(stor21, "auto"), od["stations"], types=types, variant="ckf",
+                        stm_jvp_degree=8, filter_algebra="f64", device=device)
+    plain_f, wall_pf, launches_pf, _ = counted("(c) unsharded", lambda: filt.process_arc_batch(ests, head))
+    sharded_f, wall_f, launches_f, by_thread_f = counted(
+        "(c) sharded", lambda: filt.process_arc_batch(ests, head, mesh=shards))
+    d_f = max(gap_km(a.y_est, b.y_est) for a, b in zip(sharded_f, plain_f))
+    same = all(np.array_equal(a.rejected, b.rejected) for a, b in zip(sharded_f, plain_f))
+    _log(f"  (c) process_arc_batch, {len(ests)} filters (CKF f64), {len(head)} rows over "
+         f"{MESH_OD_SECONDS / 3600.0:g} h: unsharded {wall_pf:.3f} s, {len(ests) / wall_pf:.2f} filters/s, "
+         f"{launches_pf} launches; {MESH_SHARDS} shards {wall_f:.3f} s, {len(ests) / wall_f:.2f} filters/s, "
+         f"{launches_f} launches ({', '.join(f'{k} {v}' for k, v in by_thread_f.items())}); estimates "
+         f"{d_f:.3e} km apart at most, rejections identical: {same}")
+    if len(sharded_f) != len(ests) or not (same and d_f <= MESH_TOL_KM):
+        raise RuntimeError(f"mesh (c): {len(sharded_f)} results, estimates {d_f} km apart, same rejections {same}")
+    wall_c = time.perf_counter() - t_part
+    _log(f"  walls: (a) {wall_a:.1f} s, (b) {wall_b:.1f} s, (c) {wall_c:.1f} s")
+    _log(f"Mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    sharded = runs[f"{MESH_SHARDS} shards of {card}"]
+    return dict(launches=sharded[2], traj_per_s=B_MAIN / sharded[1], shards=len(sharded[3]),
+                max_gap_km=max(max(r[4] for r in runs.values()), d_e, d_f),
+                walls={k: r[1] for k, r in runs.items()}, filters_per_s=len(ests) / wall_f)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--duration-s", type=float, default=86_400.0,
@@ -3300,6 +3489,9 @@ def main() -> None:
     # phase 6m: the file-driven high-fidelity Earth dynamics, f32 perturbations
     hifi = phase_hifi(gp, stor21, mvn)
 
+    # phase 6n: ensembles on a mesh of devices (every card, and shards of one card)
+    mesh = phase_mesh(gp, SimpleNamespace(propagator=prop21, mvn=mvn, almanac=alm), od, stor21)
+
     # phase 7: summary
     _log(f"chip_smoke.py command time: {time.perf_counter() - _T_START:.1f} s")
     ms21, bound21, bound_by = k3["times"]["21x21"]
@@ -3366,6 +3558,10 @@ def main() -> None:
         "od_fixed_rows_per_s": scan_modes["fixed_rows_per_s"],
         "launches_hifi": hifi["launches"],
         "hifi_traj_per_s": hifi["traj_per_s"],
+        "launches_mesh": mesh["launches"],
+        "mesh_traj_per_s": mesh["traj_per_s"],
+        "mesh_shards": mesh["shards"],
+        "mesh_max_gap_km": mesh["max_gap_km"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

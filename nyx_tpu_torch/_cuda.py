@@ -3,8 +3,10 @@
 Each `csrc/<name>.cu` exposes a plain `extern "C"` interface. It is compiled
 with `nvcc` at first use into `_build/` (not tracked by git), under a file
 name keyed on a hash of the source and the flags, and bound with `ctypes`.
-Nothing here runs at import: the module is imported on machines without a
-CUDA toolkit.
+A build holds a lock, so host threads that launch a kernel for the first
+time at once build it once (a mesh's shards load it before they start,
+all the same). Nothing here runs at import: the module is imported on
+machines without a CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -47,9 +50,18 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-@functools.cache
+_BUILD_LOCK = threading.Lock()
+
+
 def load(name: str) -> Built:
-    """The compiled `csrc/<name>.cu`, built on first use."""
+    """The compiled `csrc/<name>.cu`, built on first use, once whichever
+    threads ask."""
+    with _BUILD_LOCK:
+        return _load(name)
+
+
+@functools.cache
+def _load(name: str) -> Built:
     src = CSRC / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"lib{name}-{key}.so"

@@ -9,8 +9,8 @@ orbit, on the host; `percentages`, the occulted fraction at a regular grid
 of the trajectory's samples, batched on a device from one Chebyshev table of
 the Sun and the shadow bodies; and `find_eclipse_events`, the entries and
 exits, each bisected 30 times on the trajectory's interpolant. Where no
-almanac is given the port's own analytic `Almanac` serves (the reference
-falls back to SPK files, which the port does not read yet).
+almanac is given, `default_almanac()` serves, as in the reference: the SPK
+files it finds, else the analytic series.
 """
 
 from __future__ import annotations

@@ -347,3 +347,11 @@ class Orbit:
 
     def __str__(self):
         return f"[{self.frame}] r={self.r_km} km v={self.v_km_s} km/s @ {self.epoch}"
+
+
+def rss_orbit_errors(a: Orbit, b: Orbit):
+    """RSS position and velocity differences (km, km/s), as the reference's
+    utils::rss_orbit_errors."""
+    dr = float(np.linalg.norm(np.asarray(a.r_km) - np.asarray(b.r_km)))
+    dv = float(np.linalg.norm(np.asarray(a.v_km_s) - np.asarray(b.v_km_s)))
+    return dr, dv

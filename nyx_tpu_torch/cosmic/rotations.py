@@ -1,7 +1,8 @@
 """Inertial <-> body-fixed orientation (torch port of nyx_tpu/cosmic/rotations.py).
 
 The IAU Earth, Moon, Mars and Sun models as functions of TDB seconds past
-J2000 returning a 3x3 DCM per lane, plus the elementwise DCM products.
+J2000 returning a 3x3 DCM per lane, the elementary frame rotations
+`rot1`-`rot3`, plus the elementwise DCM products.
 Every function runs at the dtype and on the device of its input tensor,
 batched over its shape, and is differentiable under `torch.func.jvp`
 (station velocities and `Trajectory.to_frame` take dDCM/dt that way).
@@ -17,6 +18,28 @@ from ..xmath import linear_angle_deg, reduce_deg
 
 _D2R = math.pi / 180.0
 _DAYS_PER_CENTURY = 36_525.0
+
+
+def _rot(theta, rows):
+    c, s = torch.cos(theta), torch.sin(theta)
+    z, o = torch.zeros_like(theta), torch.ones_like(theta)
+    val = dict(c=c, s=s, ms=-s, z=z, o=o)
+    return torch.stack([torch.stack([val[k] for k in row], -1) for row in rows], -2)
+
+
+def rot1(theta):
+    """Rotation about X by theta (radians). Frame rotation (transposed vector rot)."""
+    return _rot(theta, (("o", "z", "z"), ("z", "c", "s"), ("z", "ms", "c")))
+
+
+def rot2(theta):
+    """Frame rotation about Y by theta (radians)."""
+    return _rot(theta, (("c", "z", "ms"), ("z", "o", "z"), ("s", "z", "c")))
+
+
+def rot3(theta):
+    """Frame rotation about Z by theta (radians)."""
+    return _rot(theta, (("c", "s", "z"), ("ms", "c", "z"), ("z", "z", "o")))
 
 
 def dcm_from_euler_ra_dec_w(alpha_deg, delta_deg, w_deg):

@@ -25,6 +25,9 @@ from ..time import Epoch
 from .orbit import Orbit
 
 STATE_DIM = 9
+IDX_CR = 6
+IDX_CD = 7
+IDX_PROP_MASS = 8
 
 
 class GuidanceMode:

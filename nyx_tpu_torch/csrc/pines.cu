@@ -60,6 +60,9 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
@@ -300,20 +303,36 @@ extern "C" int pines_accel_f32(const float* r_bf, const float* tab, float* out, 
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // blocks the card holds at once for this plan, found once per device and plan
-  static struct { int dev = -1, warps = 0, smem = 0, resident = 0; } last;
-  if (last.dev != dev || last.warps != warps || last.smem != smem) {
-    err = cudaFuncSetAttribute(pines_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int n_sm = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pines_kernel, warps * 32, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    last = {dev, warps, smem, per_sm * n_sm};
+  // blocks the card holds at once for this plan, found once per device and
+  // plan; host threads (the shards of a mesh) launch at once, so the table
+  // and the kernel's shared-memory limit, raised to the most any launch on
+  // the device asked for, change under a lock
+  static std::mutex plans_lock;
+  static std::map<std::tuple<int, int, int>, int> resident_of;
+  static std::map<int, int> smem_limit;
+  int resident = 0;
+  {
+    std::lock_guard<std::mutex> guard(plans_lock);
+    const auto key = std::make_tuple(dev, warps, smem);
+    const auto hit = resident_of.find(key);
+    if (hit != resident_of.end()) {
+      resident = hit->second;
+    } else {
+      if (smem > smem_limit[dev]) {
+        err = cudaFuncSetAttribute(pines_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        smem_limit[dev] = smem;
+      }
+      int n_sm = 0, per_sm = 0;
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pines_kernel, warps * 32, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+      resident = resident_of[key] = per_sm * n_sm;
+    }
   }
-  const int blocks = std::min((B + warps - 1) / warps, last.resident);
+  const int blocks = std::min((B + warps - 1) / warps, resident);
   pines_kernel<<<blocks, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       r_bf, tab, out, B, n_steps, W, W_pad, q_lo, mu, radius, inv_radius, diag1, buffers,
       chunk_steps, cols);

@@ -126,7 +126,9 @@ class Harmonics:
 
     precision: "f64" (full field at the state dtype), "f32" (the same, the
     name the reference gives an f32 caller's field), "mixed" (degrees up to
-    MIXED_SPLIT_DEGREE in f64, the rest in f32) or "split" (closed-form f64
+    `split_degree` in f64, the rest in f32: 3 suits Earth, where J2
+    dominates; bodies with large low-degree sectorials, the Moon's C22,
+    want ~8) or "split" (closed-form f64
     J2+J3, the rest of the field in one f32 recursion).
     backend: "auto" runs f32 evaluations on CUDA tensors through the
     kernel; "torch" forces the plain twin everywhere (the kernel's
@@ -147,11 +149,15 @@ class Harmonics:
     # the OD filter's STM stage differentiates a cut field while values
     # keep the whole one (ScanKalmanOD's stm_jvp_degree).
     jvp_degree: Optional[int] = None
+    # precision="mixed": degrees <= split_degree evaluate in f64, the rest
+    # in f32 (through the kernel on the card, from q_lo = split_degree)
+    split_degree: int = 3
     MIXED_SPLIT_DEGREE = 3
 
     @classmethod
     def from_stor(cls, stor: GravityFieldData, precision: str = "f64",
-                  backend: str = "auto") -> "Harmonics":
+                  backend: str = "auto", split_degree: int = MIXED_SPLIT_DEGREE,
+                  jvp_degree: Optional[int] = None) -> "Harmonics":
         if precision not in ("f64", "f32", "mixed", "split"):
             raise ConfigError(f"unknown harmonics precision {precision!r}")
         if backend not in ("auto", "torch"):
@@ -168,6 +174,8 @@ class Harmonics:
             j2=j2,
             j3=j3,
             backend=backend,
+            jvp_degree=None if jvp_degree is None else int(jvp_degree),
+            split_degree=int(split_degree),
         )
 
     def required_bodies(self):
@@ -231,7 +239,7 @@ class Harmonics:
         return replace(self, jvp_degree=int(q))
 
     def _abf_primal(self, r_bf):
-        split = self.MIXED_SPLIT_DEGREE
+        split = self.split_degree
         if self.precision == "mixed" and self.max_degree > split and r_bf.dtype == torch.float64:
             low = self._accel_any(r_bf, q_hi=split)
             high32 = self._accel_any(r_bf.to(torch.float32), q_lo=split)

@@ -14,12 +14,17 @@ the two implementations:
   kernel's derivatives (the reference has no tangent Pallas kernel).
 
 `pines_accel` picks between the first two by the device of the input alone.
+The call counters (`pines_accel_cuda.launches` and its tally by host
+thread, the twins' `cuda_calls`) are added to under `COUNT_LOCK`, so the
+shards of a mesh, one host thread each, lose no count.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -27,6 +32,8 @@ import torch
 
 from .. import _cuda
 
+# Guards the read-modify-write of every call counter of this module.
+COUNT_LOCK = threading.Lock()
 _SQRT2 = np.sqrt(2.0)
 _SQRT3 = float(np.sqrt(3.0))
 # Dynamic shared memory one block may use on an H100 (227 KB).
@@ -81,7 +88,8 @@ def pines_accel_torch(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
     Each operation is the Pallas kernel's, over the full padded width.
     """
     if r_bf.is_cuda:
-        pines_accel_torch.cuda_calls += 1
+        with COUNT_LOCK:
+            pines_accel_torch.cuda_calls += 1
     return _pines_twin(r_bf, tab, q_lo, W, mu, radius, diag1)
 
 
@@ -94,7 +102,8 @@ def pines_tangent_torch(r_bf, dr_bf, tab, q_lo: int, *, W: int, mu: float, radiu
     (functorch adds tens of microseconds an operation). The kernel's primal
     pairs with it in `gravity.PinesAccel`."""
     if r_bf.is_cuda:
-        pines_tangent_torch.cuda_calls += 1
+        with COUNT_LOCK:
+            pines_tangent_torch.cuda_calls += 1
     return _pines_twin_tangent(r_bf, dr_bf, tab, q_lo, W, mu, radius, diag1)
 
 
@@ -395,11 +404,16 @@ def pines_accel_cuda(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
         )
     if err != 0:
         raise RuntimeError(f"pines kernel launch failed with CUDA error {err}")
-    pines_accel_cuda.launches += 1
+    with COUNT_LOCK:
+        pines_accel_cuda.launches += 1
+        pines_accel_cuda.launches_by_thread[threading.current_thread().name] += 1
     return out
 
 
 pines_accel_cuda.launches = 0  # successful kernel launches
+# the same launches by the name of the host thread that made them (a mesh's
+# shards run in threads of their own); cleared by whoever reads it
+pines_accel_cuda.launches_by_thread = collections.Counter()
 
 
 def pines_accel(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,

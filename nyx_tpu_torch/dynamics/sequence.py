@@ -271,8 +271,8 @@ def _dhall_options(d):
 
 def _dhall_dynamics(d) -> DynamicsConfig:
     """Point masses, a gravity field ({_1: file spec, _2: frame}), drag by
-    its density's tag and SRP; `DynamicsConfig.build` refuses what the port
-    lacks (the 1976 atmosphere, solid tides, EGM2008 files)."""
+    its density's tag (constant, exponential or the 1976 atmosphere) and
+    SRP, as `DynamicsConfig.build` then assembles them."""
     accel = d.get("accel_models", {})
     force = d.get("force_models", {})
     cfg = DynamicsConfig()

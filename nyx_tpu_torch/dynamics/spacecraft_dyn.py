@@ -23,6 +23,7 @@ import torch.autograd.forward_ad as fwAD
 from ..constants import STD_GRAVITY_M_S2
 from ..errors import ConfigError
 from ..time import Epoch
+from ..xmath import FORWARD_AD
 from .orbital import EomContext, OrbitalDynamics
 
 CORE_DIM = 9
@@ -152,7 +153,7 @@ class SpacecraftDynamics:
                 if isinstance(gp, torch.Tensor) and gp.dim() == 2:
                     ctx = replace(ctx, guidance_params=gp.repeat(CORE_DIM, 1))
             eye = torch.eye(CORE_DIM, dtype=y.dtype, device=y.device)
-            with fwAD.dual_level():
+            with FORWARD_AD, fwAD.dual_level():
                 out = fwAD.unpack_dual(core(t_rel.repeat(CORE_DIM),
                                             fwAD.make_dual(y9.repeat(CORE_DIM, 1), eye.repeat_interleave(B, dim=0)),
                                             ctx, p, mode9))

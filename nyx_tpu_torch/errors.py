@@ -4,16 +4,16 @@ Copied from nyx_tpu/errors.py: one class per layer, each also subclassing
 the builtin (`ValueError`) the caller may already catch, under the common
 `NyxError`. `PropagationNaNError` is the port's own: the reference raises
 the builtin `ArithmeticError` on a NaN lane, so the port's class is both
-that and a `PropagationError`. The reference's OD classes are not needed
-yet.
+that and a `PropagationError`.
 """
 
 from __future__ import annotations
 
 __all__ = [
-    "NyxError", "StateError", "ConfigError", "GuidanceConfigError", "PropagationError",
-    "PropagationNaNError", "TrajError", "EventError", "TargetingError", "MonteCarloError",
-    "LambertError",
+    "NyxError", "StateError", "ConfigError", "InputOutputError", "EphemerisError",
+    "DynamicsError", "GuidanceConfigError", "PropagationError", "PropagationNaNError",
+    "TrajError", "EventError", "TargetingError", "ODError", "MeasurementSimError",
+    "MonteCarloError", "LambertError",
 ]
 
 
@@ -28,6 +28,15 @@ class StateError(NyxError, ValueError):
 
 class ConfigError(NyxError, ValueError):
     """Invalid or inconsistent configuration (io/mod.rs ConfigError)."""
+
+
+class EphemerisError(NyxError, ValueError):
+    """Almanac/SPK/BPC lookup or parsing failures (the reference defers
+    these to ANISE's AlmanacError)."""
+
+
+class DynamicsError(NyxError, ValueError):
+    """Force-model composition/evaluation errors (dynamics/mod.rs)."""
 
 
 class GuidanceConfigError(ConfigError):
@@ -56,6 +65,15 @@ class EventError(TrajError):
 class TargetingError(NyxError, RuntimeError):
     """Differential-correction failures: singular Jacobian, max
     iterations (md/opti TargetingError)."""
+
+
+class ODError(NyxError, RuntimeError):
+    """Orbit-determination failures: too few measurements, singular
+    gain/information matrix, filter divergence (od/mod.rs:120-182)."""
+
+
+class MeasurementSimError(ODError):
+    """Measurement simulation errors (od/mod.rs MeasurementSimError)."""
 
 
 class MonteCarloError(NyxError, ValueError):

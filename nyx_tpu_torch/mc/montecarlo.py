@@ -10,7 +10,11 @@ on the EOM context, optional sequential chunks of at most
 `max_lanes_per_call` lanes, and optional trajectory capture (the initial
 state is prepended as sample 0). `run_until_nth_event` locates each run's
 nth event on its capture. `run_until_epoch_encke` is the deviation mode
-of mc/encke.py. Device meshes (`mesh`) are not ported yet.
+of mc/encke.py. Every entry point takes a `mesh` (parallel/mesh.py): the
+states are drawn once on the host, padded to a multiple of the mesh's
+size and cut into one slice a shard; each shard builds its own context on
+its device and runs in a host thread of its own, and the slices are
+gathered in order, the padding cut away.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from ..errors import ConfigError
+from ..parallel.mesh import ensemble_sharding, pad_to_multiple, run_on_shards
 from ..propagators import integrator
 from ..propagators.instance import _secs
 from ..time import Epoch
@@ -32,9 +37,10 @@ from .results import Results
 
 
 class MonteCarlo:
-    def __init__(self, random_state: MvnSpacecraft, seed: int = 0):
+    def __init__(self, random_state: MvnSpacecraft, seed: int = 0, scenario: str = "mc"):
         self.random_state = random_state
         self.seed = seed
+        self.scenario = scenario
         self._encke_cache = None
 
     def generate_states(self, n: int, skip: int = 0, *, device="cuda") -> torch.Tensor:
@@ -59,11 +65,13 @@ class MonteCarlo:
         return dict(dry_mass_kg=t.dry_mass_kg, srp_area_m2=t.srp_area_m2,
                     drag_area_m2=t.drag_area_m2)
 
-    def run_until_epoch(self, prop, almanac, end_epoch: Epoch, n: int, skip: int = 0, *,
-                        max_lanes_per_call: int = 0, n_capture: int = 0, capture_stride: int = 1,
-                        device="cuda", guidance_params=None, _y0=None) -> Results:
+    def run_until_epoch(self, prop, almanac, end_epoch: Epoch, n: int, skip: int = 0,
+                        mesh=None, *, max_lanes_per_call: int = 0, n_capture: int = 0,
+                        capture_stride: int = 1, device="cuda", guidance_params=None,
+                        _y0=None) -> Results:
         """Propagate n dispersed samples to `end_epoch` on `device` (the card
-        unless the caller asks for the CPU).
+        unless the caller asks for the CPU), or over the shards of `mesh`
+        (parallel/mesh.py; `device` is then the mesh's).
 
         `skip` starts at sample `skip` of the seed's stream (resume).
         `max_lanes_per_call` > 0 runs the lanes in sequential chunks of at
@@ -78,6 +86,10 @@ class MonteCarlo:
         `_y0` ([n, 9] numpy array or tensor) replaces the draw, so two
         implementations can be fed identical initial states.
         """
+        if mesh is not None:
+            return self._run_sharded(prop, almanac, end_epoch, n, skip, mesh, _y0,
+                                     guidance_params, max_lanes_per_call=max_lanes_per_call,
+                                     n_capture=n_capture, capture_stride=capture_stride)
         template = self.random_state.template
         epoch0 = template.epoch
         duration_s = (end_epoch - epoch0).to_seconds()
@@ -107,6 +119,32 @@ class MonteCarlo:
             parts.append(self._results(epoch0, end_epoch, res, y0[sl], n_capture,
                                        self._interp_j2(prop), device))
         return parts[0] if len(parts) == 1 else Results.concatenate(parts)
+
+    def _run_sharded(self, prop, almanac, end_epoch, n, skip, mesh, y0, guidance_params, **kw):
+        """run_until_epoch over the shards of `mesh`: the states drawn once on
+        the host (or `y0`), padded with copies of the last, one slice a
+        shard, each run on its device in its own thread; the slices
+        gathered in order and the padding cut away."""
+        if y0 is None:
+            y0 = self.generate_states(n, skip, device="cpu")
+        y0, _ = pad_to_multiple(torch.as_tensor(y0, dtype=torch.float64).cpu(), mesh.size)
+        gp = None
+        if guidance_params is not None:
+            gp = np.asarray(guidance_params, dtype=np.float64)
+            if gp.ndim > 1:
+                gp, _ = pad_to_multiple(gp, mesh.size)
+        slices = ensemble_sharding(mesh).slices(y0.shape[0])
+
+        def shard(k, dev):
+            sl = slices[k]
+            gp_k = None if gp is None else (gp if gp.ndim == 1 else gp[sl])
+            return self.run_until_epoch(prop, almanac, end_epoch, sl.stop - sl.start,
+                                        device=dev, guidance_params=gp_k, _y0=y0[sl], **kw)
+
+        # concatenate keeps the largest iteration count of the shards
+        parts = run_on_shards(mesh, shard, f"{self.scenario} shard")
+        return dataclasses.replace(Results.concatenate(parts).truncated(n),
+                                   device=str(mesh.devices[0]))
 
     @staticmethod
     def _interp_j2(prop):
@@ -161,27 +199,31 @@ class MonteCarlo:
             **traj,
         )
 
-    def resume_run_until_epoch(self, prop, almanac, end_epoch, skip, n, *, device="cuda"):
+    def resume_run_until_epoch(self, prop, almanac, end_epoch, skip, n, mesh=None, *,
+                               device="cuda"):
         """The reference's alias: `run_until_epoch` from sample `skip`."""
-        return self.run_until_epoch(prop, almanac, end_epoch, n, skip, device=device)
+        return self.run_until_epoch(prop, almanac, end_epoch, n, skip, mesh, device=device)
 
     def run_until_nth_event(self, prop, almanac, max_duration, event, trigger: int, n: int,
-                            skip: int = 0, *, n_capture: int = 1024, capture_stride: int = 1,
-                            device="cuda") -> Results:
-        """Propagate n dispersed samples for `max_duration` with capture,
-        then locate each run's `trigger`-th crossing of `event` on its
-        capture (Results.locate_nth_event); a run without it keeps its
-        final state, `event_found` False."""
+                            skip: int = 0, mesh=None, *, n_capture: int = 1024,
+                            capture_stride: int = 1, device="cuda") -> Results:
+        """Propagate n dispersed samples for `max_duration` with capture
+        (over the shards of `mesh` if given), then locate each run's
+        `trigger`-th crossing of `event` on its capture
+        (Results.locate_nth_event); a run without it keeps its final state,
+        `event_found` False."""
         end_epoch = self.random_state.template.epoch + _secs(max_duration)
-        results = self.run_until_epoch(prop, almanac, end_epoch, n, skip, n_capture=n_capture,
-                                       capture_stride=capture_stride, device=device)
+        results = self.run_until_epoch(prop, almanac, end_epoch, n, skip, mesh,
+                                       n_capture=n_capture, capture_stride=capture_stride,
+                                       device=device)
         results.locate_nth_event(event, trigger)
         return results
 
     def run_until_epoch_encke(self, prop, almanac, end_epoch: Epoch, n: int, skip: int = 0,
                               stride_s: float = 60.0, tolerance: float = 1e-6,
                               step_mode: str = "fixed", dt_s=None, integ: str = "rk",
-                              n_capture: int = 0, *, device="cuda", _y0=None) -> Results:
+                              n_capture: int = 0, mesh=None, *, device="cuda",
+                              _y0=None) -> Results:
         """Encke mode (mc/encke.py): the nominal propagates once at full
         quality; the ensemble advances as float32 deviations around it, on
         `device` (the card unless the caller asks for the CPU).
@@ -200,6 +242,10 @@ class MonteCarlo:
         the deviation). `stride_s` is the reference table's grid. The
         reference (its table and end state) is cached per (prop, arc,
         stride_s, device).
+        `mesh`: the deviations are padded to a multiple of its size and
+        sharded over it (parallel/mesh.py); the nominal propagates once, on
+        the mesh's first device, and each shard gets a copy of its table and
+        a context of its own on its device.
         `_y0` ([n, 9]) replaces the draw. No guidance or thrust.
         """
         template = self.random_state.template
@@ -216,7 +262,7 @@ class MonteCarlo:
             w_p = math.sqrt(template.frame.mu / rp**3)
             coef = 0.16 if integ != "abm" else 0.16 / (1.0 + template.orbit.ecc)
             dt_s = float(np.clip(coef / w_p, 30.0, 2400.0))
-        device = torch.device(device)
+        device = torch.device(device) if mesh is None else mesh.devices[0]
         key = (id(prop), epoch0.to_tai_seconds(), duration_s, stride_s, device)
         hit = self._encke_cache
         if hit is not None and hit[0] == key and hit[1] is prop:
@@ -231,10 +277,48 @@ class MonteCarlo:
               else self.generate_states(n, skip, device="cpu").numpy())
         ref0 = template.to_vector()
         y0_dev = np.concatenate([y0[:, 0:6] - ref0[None, 0:6], y0[:, 6:9]], axis=1).astype(np.float32)
-        y0_dev = torch.as_tensor(y0_dev, device=device)
         p = dict(self._sc_params(), cr_ref=template.cr, cd_ref=template.cd,
                  mass_ref_kg=template.total_mass_kg)
+        lanes = dict(prop=prop, duration_s=duration_s, p=p, step_mode=step_mode, dt_s=dt_s,
+                     integ=integ, n_capture=n_capture, tolerance=tolerance)
+        if mesh is None:
+            out = self._encke_lanes(torch.as_tensor(y0_dev, device=device), ref, ctx, **lanes)
+        else:
+            y0_pad, _ = pad_to_multiple(y0_dev, mesh.size)
+            slices = ensemble_sharding(mesh).slices(y0_pad.shape[0])
+
+            def shard(k, dev):
+                ref_k = ref._replace(r=ref.r.to(dev), v=ref.v.to(dev), a=ref.a.to(dev),
+                                     p32=ref.p32.to(dev))
+                ctx_k = prop.dynamics.build_context(epoch0, duration_s, almanac, device=dev)
+                return self._encke_lanes(torch.as_tensor(y0_pad[slices[k]], device=dev), ref_k,
+                                         ctx_k, **lanes)
+
+            parts = run_on_shards(mesh, shard, f"{self.scenario} encke shard")
+            out = {k: (max(o[k] for o in parts) if k == "iterations" else
+                       None if parts[0][k] is None else
+                       np.concatenate([o[k] for o in parts])[:n])
+                   for k in parts[0]}
+        dev = out.pop("dev")
+        y_final = np.concatenate([y_ref_final[None, 0:6] + dev[:, 0:6], dev[:, 6:9]], axis=1)
         traj = {}
+        if out["traj_y"] is not None:
+            traj = dict(traj_y=out["traj_y"], traj_t=out["traj_t"], traj_len=out["traj_len"])
+        j2, re = self._interp_j2(prop)
+        return Results(epoch0=epoch0, end_epoch=end_epoch, template=template, y_final=y_final,
+                       status=out["status"], n_accepted=out["n_accepted"],
+                       n_rejected=out["n_rejected"], y_initial=y0, interp_j2=j2,
+                       interp_re_km=re, iterations=out["iterations"], device=str(device), **traj)
+
+    @staticmethod
+    def _encke_lanes(y0_dev, ref, ctx, *, prop, duration_s, p, step_mode, dt_s, integ, n_capture,
+                     tolerance) -> dict:
+        """One batch of Encke deviations y0_dev [B, 9] (float32, on the
+        device of `ref` and `ctx`) to the arc's end: host arrays of the
+        final deviations (`dev`, f64), status, accepted and rejected steps,
+        the recombined captures (or None) and the loop's iterations."""
+        n = y0_dev.shape[0]
+        traj = dict(traj_y=None, traj_t=None, traj_len=None)
         if step_mode == "fixed":
             capture_every = 0
             if n_capture > 0:
@@ -266,10 +350,5 @@ class MonteCarlo:
             y_dev, status = res.y, res.status.cpu().numpy()
             n_acc, n_rej = res.n_accepted.cpu().numpy(), res.n_rejected.cpu().numpy()
             iterations = res.iterations
-        dev = y_dev.to(torch.float64).cpu().numpy()
-        y_final = np.concatenate([y_ref_final[None, 0:6] + dev[:, 0:6], dev[:, 6:9]], axis=1)
-        j2, re = self._interp_j2(prop)
-        return Results(epoch0=epoch0, end_epoch=end_epoch, template=template, y_final=y_final,
-                       status=status, n_accepted=n_acc, n_rejected=n_rej, y_initial=y0,
-                       interp_j2=j2, interp_re_km=re, iterations=iterations, device=str(device),
-                       **traj)
+        return dict(dev=y_dev.to(torch.float64).cpu().numpy(), status=status, n_accepted=n_acc,
+                    n_rejected=n_rej, iterations=iterations, **traj)

@@ -8,6 +8,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
+from . import param as param_mod
 from .param import StateParameter
 
 
@@ -31,3 +34,9 @@ class Objective:
         if self.parameter in StateParameter.ANGLES_DEG:
             err = (err + 180.0) % 360.0 - 180.0
         return abs(err) <= self.tolerance, err
+
+    def assess(self, y, mu, radius_km=0.0):
+        """`assess_raw` of the parameter's value on the state `y` (a [>= 6]
+        tensor or array)."""
+        achieved = float(param_mod.value(self.parameter, torch.as_tensor(y), mu, radius_km))
+        return self.assess_raw(achieved)

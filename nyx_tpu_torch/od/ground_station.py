@@ -40,7 +40,7 @@ from ..cosmic.frames import Frame, Frames
 from ..cosmic.rotations import apply_dcm, apply_dcm_t
 from ..errors import ConfigError
 from ..time import Epoch
-from ..xmath import norm
+from ..xmath import FORWARD_AD, norm
 from .interlink import DeviceTrajectory, _on, is_interlink
 from .msr import MeasurementType
 from .noise import StochasticNoise
@@ -89,7 +89,8 @@ def station_geometry(t_tdb, lat_deg, lon_deg, height_km, frame: Frame):
     def pos(t):
         return apply_dcm_t(frame.dcm_from_j2000(t), r_bf)
 
-    r_st, v_st = torch.func.jvp(pos, (t_tdb,), (torch.ones_like(t_tdb),))
+    with FORWARD_AD:
+        r_st, v_st = torch.func.jvp(pos, (t_tdb,), (torch.ones_like(t_tdb),))
     sez = torch.matmul(sez_dcm(lat_deg, lon_deg), frame.dcm_from_j2000(t_tdb))
     return r_st, v_st, sez
 

@@ -175,6 +175,14 @@ class InterlinkTxSpacecraft:
         clear = norm(rx + u[:, None] * d) > self.occulting_radius_km
         return torch.where(clear, 90.0, -90.0).to(t_tdb.dtype)
 
+    def azimuth_elevation_range(self, t_tdb, rv6):
+        """(azimuth_deg, elevation_deg, range_km, range_rate_km_s), each [K],
+        as a ground station's: azimuth 0, the pseudo-elevation of the line
+        of sight, and the link's range and range rate."""
+        vals = self._link_values(t_tdb, rv6, (MeasurementType.RANGE_KM,
+                                              MeasurementType.DOPPLER_KM_S))
+        return torch.zeros_like(t_tdb), self._los_clear(t_tdb, rv6), vals[:, 0], vals[:, 1]
+
     def measurement_fn(self, types=None):
         """`h(t_tdb [K], rv6 [K, 6]) -> [K, T]`: `measurement_fn_at` at the
         epochs t_tdb."""

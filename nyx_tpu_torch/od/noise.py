@@ -15,7 +15,7 @@ uses.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import ClassVar, Optional
 
 import numpy as np
 
@@ -114,6 +114,8 @@ class StochasticNoise:
     white_noise: Optional[WhiteNoise] = None
     bias: Optional[GaussMarkov] = None
 
+    ZERO: ClassVar["StochasticNoise"]  # no noise; set below
+
     @classmethod
     def default_range_km(cls) -> "StochasticNoise":
         # DSN defaults: 2 m white, 5 km / 12.5 d GM bias
@@ -166,6 +168,9 @@ class StochasticNoise:
         if self.bias is not None:
             c += self.bias.covariance()
         return max(c, 1e-32)
+
+
+StochasticNoise.ZERO = StochasticNoise(white_noise=WhiteNoise(0.0))
 
 
 class NoiseState:

@@ -14,7 +14,9 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
+from ..xmath import norm
 from .interlink import _on
 from .msr import MeasurementType
 from .noise import StochasticNoise, WhiteNoise
@@ -44,6 +46,13 @@ class PositionDevice:
         if not self.stochastic_noises:
             self.stochastic_noises = {t: StochasticNoise(WhiteNoise(self.sigma_km))
                                       for t in self.measurement_types}
+
+    def azimuth_elevation_range(self, t_tdb, rv6):
+        """(azimuth_deg, elevation_deg, range_km, range_rate_km_s), each [K],
+        as a ground station's: always visible at 90 deg, the range the
+        distance from the frame's origin, no range rate."""
+        zero = torch.zeros_like(t_tdb)
+        return zero, torch.full_like(t_tdb, 90.0), norm(rv6[:, 0:3]), zero
 
     def measurement_fn(self, types=None):
         """`h(t_tdb [K], rv6 [K, 6]) -> [K, T]`: `measurement_fn_at` at the

@@ -40,7 +40,9 @@ into `segment_rows`-row segments, each runs the four stages, and the
 estimate and covariance of a segment's last row start the next segment's
 nominal. `predict_for` maps a covariance over a uniform grid through the
 same stages. `process_arc_batch` runs an ensemble of CKFs on one arc, the
-estimates a leading axis through every stage. `prop_mode` "fixed" and
+estimates a leading axis through every stage, on one device or sharded
+over a mesh of them (a copy of the filter a shard, `on_device`, in a host
+thread of its own). `prop_mode` "fixed" and
 "adaptive" instead propagate the nominal and its STM row by row
 (`_run_rows`), the EKF relinearizing every row.
 
@@ -61,6 +63,7 @@ its one lane to eight, and the parallel filter's blocking of rows by 128.
 
 from __future__ import annotations
 
+import copy
 import math
 import time
 from dataclasses import dataclass, replace
@@ -74,8 +77,10 @@ from ..dynamics.gravity import Harmonics
 from ..dynamics.orbital import OrbitalDynamics
 from ..dynamics.spacecraft_dyn import SpacecraftDynamics
 from ..errors import ConfigError, PropagationError
+from ..parallel.mesh import ensemble_sharding, run_on_shards
 from ..propagators import integrator
 from ..time import Duration, Epoch
+from ..xmath import FORWARD_AD
 from .ground_station import observe, require_same_center, station_geometry
 from .interlink import is_interlink, link_observe, stack_tables, table_state_rows
 from .msr import TrackingDataArc
@@ -204,9 +209,10 @@ def _observe_folded(t_tdb, rv_t, rv_tm, tint, geometry, observe_fn):
     n_rv, n = 6, ends * m_rows
     eye = torch.eye(n_rv, dtype=rv.dtype, device=rv.device)
     geo6 = tuple(None if g is None else g.repeat((n_rv,) + (1,) * (g.dim() - 1)) for g in geo)
-    computed, cols = torch.func.jvp(
-        lambda x: observe_fn(x, *geo6),
-        (rv.repeat(n_rv, 1),), (eye.repeat_interleave(n, dim=0),))
+    with FORWARD_AD:
+        computed, cols = torch.func.jvp(
+            lambda x: observe_fn(x, *geo6),
+            (rv.repeat(n_rv, 1),), (eye.repeat_interleave(n, dim=0),))
     computed = computed[:n]
     h_rv = cols.reshape(n_rv, n, -1).permute(1, 2, 0)
     if ends == 2:
@@ -909,8 +915,9 @@ class ScanKalmanOD:
         return [(b0, b1, p, float(t_rel[b1 - 1]) - p) for (b0, b1), p in zip(bounds, prev)]
 
     def _sync(self):
+        # the calling thread's stream: a shard of a mesh waits for its own work
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _stage1(self, y0, arc_span, k_cap, ctx, sc_params):
         """The nominals of the filters y0 [B, 9], with dense capture:
@@ -1234,14 +1241,19 @@ class ScanKalmanOD:
         are the first estimate's. One pass, with the configured gate, as in
         the reference (no Gauss-Newton iterations). Returns a list of
         ScanODResult. The CKF alone, as in the reference: an EKF ensemble
-        runs process_arc for each estimate."""
-        if mesh is not None:
-            raise ConfigError("a mesh of devices is not ported: the ensemble runs on one device "
-                              "(multi-GPU is ROADMAP.md's Queue 1, item 8)")
+        runs process_arc for each estimate.
+
+        `mesh` (parallel/mesh.py) shards the filters: the estimates are
+        padded with copies of the first to a multiple of its size, and each
+        shard runs its slice of them on its device (the arc, the rows and
+        the tracker tables copied there) in a host thread of its own. One
+        ScanODResult a real estimate comes back, in order."""
         if self.variant == "ekf":
             raise ConfigError("process_arc_batch supports variant='ckf' only; for an EKF "
                               "ensemble run process_arc per estimate (or use the CKF with "
                               "iterations)")
+        if mesh is not None:
+            return self._batch_on_mesh(list(initial_estimates), arc, mesh)
         gate, thresh, layout, rows, sc_params, y0, p0, walls = self._inputs(
             list(initial_estimates), arc)
         t_np, trk_np, _, _, real = layout
@@ -1259,6 +1271,37 @@ class ScanKalmanOD:
         walls["s4"] += time.perf_counter() - t0
         self.stage_walls_s = walls
         return [self._result(arc, real, *(x[k] for x in host)) for k in range(len(host[0]))]
+
+    def _batch_on_mesh(self, estimates, arc: TrackingDataArc, mesh):
+        """process_arc_batch over the shards of `mesh` (see there); the stage
+        walls are each stage's longest over the shards."""
+        n_real = len(estimates)
+        padded = estimates + [estimates[0]] * ((-n_real) % mesh.size)
+        slices = ensemble_sharding(mesh).slices(len(padded))
+        shards = [self.on_device(dev) for dev in mesh.devices]
+
+        def shard(k, _dev):
+            return shards[k].process_arc_batch(padded[slices[k]], arc)
+
+        parts = run_on_shards(mesh, shard, "filter shard")
+        walls = [f.stage_walls_s for f in shards]
+        self.stage_walls_s = {k: max(w[k] for w in walls) for k in walls[0]}
+        return [r for part in parts for r in part][:n_real]
+
+    def on_device(self, device) -> "ScanKalmanOD":
+        """This filter with its tables on `device`: a shallow copy whose
+        tensors (station coordinates, tracker tables, noise tables) are
+        copied there, with a capture size and stage walls of its own, so
+        copies can run at once from several threads."""
+        twin = copy.copy(self)
+        twin.device = torch.device(device)
+        for k, v in vars(self).items():
+            if isinstance(v, torch.Tensor):
+                setattr(twin, k, v.to(twin.device))
+            elif isinstance(v, tuple) and v and all(isinstance(x, torch.Tensor) for x in v):
+                setattr(twin, k, tuple(x.to(twin.device) for x in v))
+        twin.stage_walls_s = {}
+        return twin
 
     def _result(self, arc, real, y_est, covar, prefit, postfit, ratio, rejected) -> ScanODResult:
         """One filter's host outputs at the real rows, the bias lanes split

@@ -70,6 +70,10 @@ class TrkConfig:
     def default(cls) -> "TrkConfig":
         return cls(sampling_s=60.0, scheduler=Scheduler())
 
+    @classmethod
+    def from_sample_rate(cls, rate) -> "TrkConfig":
+        return cls(sampling_s=_secs(rate), scheduler=Scheduler())
+
 
 @dataclass
 class Strand:

@@ -1,7 +1,8 @@
 """Integrator options (GMAT defaults), torch port of nyx_tpu/propagators/options.py.
 
 The reference's TPU-only knobs (`stage_mode`, `steps_per_iter`,
-`min_lanes`, `loop_mode`, `combo_precision`) have no counterpart here.
+`min_lanes`, `loop_mode` with its `scan_iterations`, `combo_precision`)
+have no counterpart here.
 """
 
 from __future__ import annotations

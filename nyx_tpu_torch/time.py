@@ -4,8 +4,9 @@ The host-side `Epoch` keeps two-part precision (integer TAI seconds past
 J2000 + fractional seconds); device code works with plain float64 seconds
 past J2000 in one scale (TAI or TDB). Scales: TAI (canonical), TT, TDB, UTC,
 GPS. The host code is copied from the reference, ISO strings (`isoformat`,
-`from_str`) and Gregorian output included; only the tensor branch of
-`tdb_minus_tt` uses torch. Julian dates are not ported yet.
+`from_str`) and Gregorian output included, with Julian dates, GPS seconds,
+hifitime's `Unit` and `Duration`'s arithmetic; only the tensor branch of
+`tdb_minus_tt` uses torch.
 """
 
 from __future__ import annotations
@@ -21,6 +22,11 @@ from .errors import ConfigError
 SECONDS_PER_DAY = 86_400.0
 TT_MINUS_TAI = 32.184
 GPS_MINUS_TAI = -19.0
+
+# Julian date of the J2000 epoch (2000-01-01T12:00:00 TT == JD 2451545.0 TT).
+# The TAI variant is anchored: t = 0 is 2000-01-01T12:00:00 TAI.
+JD_J2000 = 2_451_545.0
+MJD_OFFSET = 2_400_000.5
 
 # Leap seconds: the IERS table as (year, month, day, TAI-UTC seconds).
 _LEAP_TABLE = [
@@ -89,14 +95,91 @@ def tdb_minus_tt(tt_s_past_j2000):
     return 0.001657 * torch.sin(g + 0.01671 * torch.sin(g))
 
 
+class Unit:
+    """Duration constructors mirroring hifitime's `Unit` (seconds-based)."""
+
+    Nanosecond = 1e-9
+    Microsecond = 1e-6
+    Millisecond = 1e-3
+    Second = 1.0
+    Minute = 60.0
+    Hour = 3600.0
+    Day = SECONDS_PER_DAY
+    Week = 7 * SECONDS_PER_DAY
+
+
 @dataclass(frozen=True, order=True)
 class Duration:
     """A span of time, stored as float64 seconds."""
 
     seconds: float
 
+    @classmethod
+    def from_seconds(cls, s: float) -> "Duration":
+        return cls(float(s))
+
+    @classmethod
+    def from_minutes(cls, m: float) -> "Duration":
+        return cls(m * 60.0)
+
+    @classmethod
+    def from_hours(cls, h: float) -> "Duration":
+        return cls(h * 3600.0)
+
+    @classmethod
+    def from_days(cls, d: float) -> "Duration":
+        return cls(d * SECONDS_PER_DAY)
+
     def to_seconds(self) -> float:
         return self.seconds
+
+    def to_unit(self, unit: float) -> float:
+        """This span in `unit` (a `Unit` constant)."""
+        return self.seconds / unit
+
+    @property
+    def days(self) -> float:
+        return self.seconds / SECONDS_PER_DAY
+
+    def is_negative(self) -> bool:
+        return self.seconds < 0
+
+    def __add__(self, other):
+        if isinstance(other, Duration):
+            return Duration(self.seconds + other.seconds)
+        return NotImplemented
+
+    def __sub__(self, other):
+        if isinstance(other, Duration):
+            return Duration(self.seconds - other.seconds)
+        return NotImplemented
+
+    def __neg__(self):
+        return Duration(-self.seconds)
+
+    def __mul__(self, k):
+        return Duration(self.seconds * k)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, k):
+        if isinstance(k, Duration):
+            return self.seconds / k.seconds
+        return Duration(self.seconds / k)
+
+    def __abs__(self):
+        return Duration(abs(self.seconds))
+
+    def __str__(self):
+        s = abs(self.seconds)
+        sign = "-" if self.seconds < 0 else ""
+        if s >= SECONDS_PER_DAY:
+            return f"{sign}{s / SECONDS_PER_DAY:.6f} days"
+        if s >= 3600:
+            return f"{sign}{s / 3600:.6f} h"
+        if s >= 60:
+            return f"{sign}{s / 60:.6f} min"
+        return f"{sign}{s:.9f} s"
 
 
 @dataclass(frozen=True, order=True)
@@ -132,8 +215,28 @@ class Epoch:
         return cls.from_tt_seconds_j2000(tt)
 
     @classmethod
+    def from_gps_seconds_j2000(cls, s: float) -> "Epoch":
+        return cls._make(s - GPS_MINUS_TAI)
+
+    @classmethod
     def from_utc_seconds_j2000(cls, s: float) -> "Epoch":
         return cls._make(s + tai_minus_utc(s))
+
+    @classmethod
+    def from_jde_tai(cls, jd: float) -> "Epoch":
+        return cls._make((jd - JD_J2000) * SECONDS_PER_DAY)
+
+    @classmethod
+    def from_mjd_tai(cls, mjd: float) -> "Epoch":
+        return cls._make((mjd + MJD_OFFSET - JD_J2000) * SECONDS_PER_DAY)
+
+    @classmethod
+    def from_jde_tdb(cls, jd: float) -> "Epoch":
+        return cls.from_tdb_seconds_j2000((jd - JD_J2000) * SECONDS_PER_DAY)
+
+    @classmethod
+    def from_jde_utc(cls, jd: float) -> "Epoch":
+        return cls.from_utc_seconds_j2000((jd - JD_J2000) * SECONDS_PER_DAY)
 
     @classmethod
     def from_gregorian(cls, y, mo, d, h=0, mi=0, s=0.0, scale="UTC") -> "Epoch":
@@ -200,6 +303,21 @@ class Epoch:
         off = tai_minus_utc(tai - off)
         return tai - off
 
+    def to_jde_tai(self) -> float:
+        return JD_J2000 + self.to_tai_seconds() / SECONDS_PER_DAY
+
+    def to_mjd_tai(self) -> float:
+        return self.to_jde_tai() - MJD_OFFSET
+
+    def to_jde_tt(self) -> float:
+        return JD_J2000 + self.to_tt_seconds() / SECONDS_PER_DAY
+
+    def to_jde_tdb(self) -> float:
+        return JD_J2000 + self.to_tdb_seconds() / SECONDS_PER_DAY
+
+    def to_jde_utc(self) -> float:
+        return JD_J2000 + self.to_utc_seconds() / SECONDS_PER_DAY
+
     def to_gregorian(self, scale="UTC"):
         """(year, month, day, hour, minute, seconds) in `scale`."""
         scale = scale.upper()
@@ -248,3 +366,6 @@ class Epoch:
 
     def __str__(self):
         return self.isoformat("UTC")
+
+
+J2000_TAI = Epoch(0, 0.0)

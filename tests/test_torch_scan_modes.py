@@ -83,6 +83,7 @@ from nyx_tpu_torch.od import (
     TrkConfig,
 )
 from nyx_tpu_torch.od.noise import GaussMarkov, StochasticNoise, WhiteNoise
+from nyx_tpu_torch.parallel import Mesh
 from nyx_tpu_torch.propagators import IntegratorOptions, Propagator
 
 needs_jax = pytest.mark.skipif(jax is None, reason="needs JAX and nyx_tpu (the reference)")
@@ -445,8 +446,8 @@ def test_ensemble_in_fixed_mode_runs(scene):
 def test_refusals(tmp_path):
     """Each of the reference's refusals, as ConfigError: interlink devices,
     cross-body stations, two-way devices and bias lanes outside the batch
-    pipeline; bias lanes with the EKF; the ensemble with the EKF, and with a
-    mesh; and unknown modes."""
+    pipeline; bias lanes with the EKF; the ensemble with the EKF, on one
+    device or on a mesh; and unknown modes."""
     prop = _two_body(P)
     truth = _truth(P)
     _, traj = prop.with_state(truth, device="cpu").for_duration_with_traj(600.0)
@@ -477,9 +478,9 @@ def test_refusals(tmp_path):
     with pytest.raises(ConfigError):
         ScanKalmanOD(prop, _stations(P), types=TYPES, variant="ekf",
                      device="cpu").process_arc_batch([est], arc)
-    with pytest.raises(ConfigError, match="Queue 1, item 8"):
-        ScanKalmanOD(prop, _stations(P), types=TYPES, device="cpu").process_arc_batch(
-            [est], arc, mesh=object())
+    with pytest.raises(ConfigError):  # an EKF ensemble on a mesh too
+        ScanKalmanOD(prop, _stations(P), types=TYPES, variant="ekf", device="cpu").process_arc_batch(
+            [est], arc, mesh=Mesh((torch.device("cpu"),) * 2))
 
 
 # ---------------------------------------------------------------- Cr and Cd
