@@ -210,6 +210,8 @@ host, as the main path makes them. Run from the repository root:
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import importlib
 import importlib.util
@@ -218,6 +220,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from types import SimpleNamespace
@@ -760,6 +763,42 @@ def ex02_scene(*, device="cuda"):
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+class _LaunchesByThread:
+    """`gp.pines_accel_cuda` wrapped to tally its launches by the name of the
+    host thread that made them (a mesh's shards run in threads of their
+    own). It stands in the module's global while a phase runs, so the
+    kernel's own `pines_accel_cuda.launches += 1` finds it there:
+    `launches` reads and writes through to the kernel's counter."""
+
+    def __init__(self, kernel):
+        self.kernel, self.tally, self.lock = kernel, collections.Counter(), threading.Lock()
+
+    def __call__(self, *args, **kwargs):
+        out = self.kernel(*args, **kwargs)
+        with self.lock:
+            self.tally[threading.current_thread().name] += 1
+        return out
+
+    @property
+    def launches(self):
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.kernel.launches = n
+
+
+@contextlib.contextmanager
+def _launches_by_thread(gp):
+    """A Counter of the kernel's launches inside the context by host thread
+    (`_LaunchesByThread`); the kernel's own counter still counts."""
+    wrapped = gp.pines_accel_cuda = _LaunchesByThread(gp.pines_accel_cuda)
+    try:
+        yield wrapped.tally
+    finally:
+        gp.pines_accel_cuda = wrapped.kernel
 
 
 def ex05_flow(tx_hours: float = EX05_HOURS, *, device="cuda", out_dir=None):
@@ -3254,14 +3293,14 @@ def phase_mesh(gp, leo, od, stor21, device="cuda"):
         ran the kernel, never the twin's primal on CUDA, and the threads'
         launches sum to the counter's."""
         gp.pines_accel_cuda.launches = 0
-        gp.pines_accel_cuda.launches_by_thread.clear()
         gp.pines_accel_torch.cuda_calls = 0
         _sync(device)
         t0 = time.perf_counter()
-        out = fn()
-        _sync(device)
+        with _launches_by_thread(gp) as tally:
+            out = fn()
+            _sync(device)
         wall, launches = time.perf_counter() - t0, gp.pines_accel_cuda.launches
-        by_thread = dict(sorted(gp.pines_accel_cuda.launches_by_thread.items()))
+        by_thread = dict(sorted(tally.items()))
         if launches <= 0 or gp.pines_accel_torch.cuda_calls != 0:
             raise RuntimeError(f"mesh {label} did not run through the kernel: {launches} launches, "
                                f"{gp.pines_accel_torch.cuda_calls} twin primal calls on CUDA")

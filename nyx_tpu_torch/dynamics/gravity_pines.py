@@ -14,14 +14,13 @@ the two implementations:
   kernel's derivatives (the reference has no tangent Pallas kernel).
 
 `pines_accel` picks between the first two by the device of the input alone.
-The call counters (`pines_accel_cuda.launches` and its tally by host
-thread, the twins' `cuda_calls`) are added to under `COUNT_LOCK`, so the
-shards of a mesh, one host thread each, lose no count.
+The call counters (`pines_accel_cuda.launches`, the twins' `cuda_calls`)
+are added to under `COUNT_LOCK`, so the shards of a mesh, one host thread
+each, lose no count.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 import threading
@@ -406,14 +405,10 @@ def pines_accel_cuda(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,
         raise RuntimeError(f"pines kernel launch failed with CUDA error {err}")
     with COUNT_LOCK:
         pines_accel_cuda.launches += 1
-        pines_accel_cuda.launches_by_thread[threading.current_thread().name] += 1
     return out
 
 
 pines_accel_cuda.launches = 0  # successful kernel launches
-# the same launches by the name of the host thread that made them (a mesh's
-# shards run in threads of their own); cleared by whoever reads it
-pines_accel_cuda.launches_by_thread = collections.Counter()
 
 
 def pines_accel(r_bf, tab, q_lo: int, *, W: int, mu: float, radius: float,

@@ -23,11 +23,14 @@ import torch.autograd.forward_ad as fwAD
 from ..constants import STD_GRAVITY_M_S2
 from ..errors import ConfigError
 from ..time import Epoch
+from ..tracing import annotate
 from ..xmath import FORWARD_AD
 from .orbital import EomContext, OrbitalDynamics
 
 CORE_DIM = 9
 STM_DIM = CORE_DIM * CORE_DIM
+# the EOM's span around a force model, by its class; `eom.<class>` otherwise
+_SPAN_NAMES = {"SolarPressure": "eom.srp"}
 
 
 class SpacecraftDynamics:
@@ -172,47 +175,57 @@ class SpacecraftDynamics:
         guidance = self.guidance
         decrement_mass = self.decrement_mass
         pert_f32 = self.pert_precision == "f32"
+        # each force model with its span's name, named once here
+        force_models = tuple(
+            (fm, _SPAN_NAMES.get(type(fm).__name__, f"eom.{type(fm).__name__.lower()}"))
+            for fm in self.force_models)
 
         def eom(t_rel, y9, ctx, p, mode=None):
-            t_tdb = ctx.epoch0_tdb + t_rel
-            r = y9[..., 0:3]
-            v = y9[..., 3:6]
-            cr = y9[..., 6]
-            cd = y9[..., 7]
-            m_prop = y9[..., 8]
-            mass = p["dry_mass_kg"] + m_prop
-            if pert_f32 and r.dtype == torch.float64 and self.orbital_dyn.models:
-                a = self.orbital_dyn.two_body_accel(ctx, r)
-                ap = self.orbital_dyn.perturbation_accel(ctx, t_tdb, r.to(torch.float32),
-                                                         v.to(torch.float32))
-                a = a + ap.to(r.dtype)
-            else:
-                a = self.orbital_dyn.accel(ctx, t_tdb, r, v)
-            if self.force_models:
-                # SRP and drag are <= ~1e-9 km/s^2: f32 rounding of the force
-                # lands far below the integrator tolerance on the total
-                fdt = torch.float32 if r.dtype == torch.float64 else r.dtype
-                sc32 = dict(
-                    cr=cr.to(fdt),
-                    cd=cd.to(fdt),
-                    srp_area_m2=p["srp_area_m2"],
-                    drag_area_m2=p["drag_area_m2"],
-                    mass_kg=mass.to(fdt),
-                )
-                r32, v32 = r.to(fdt), v.to(fdt)
-                f = torch.zeros_like(r32)
-                for fm in self.force_models:
-                    f = f + fm.force_per_mass(ctx, t_tdb, r32, v32, sc32)
-                a = a + f.to(r.dtype)
-            mdot = torch.zeros_like(m_prop)
-            if guidance is not None:
-                u, throttle = guidance.direction_and_throttle(ctx, t_tdb, y9, mode)
-                f_n = throttle * thruster.thrust_N
-                a = a + (f_n / (mass * 1e3))[..., None] * u
-                if decrement_mass:
-                    mdot = -f_n / (thruster.isp_s * STD_GRAVITY_M_S2)
-            zeros = torch.zeros_like(cr)
-            return torch.cat([v, a, torch.stack([zeros, zeros, mdot], dim=-1)], dim=-1)
+            with annotate("eom.call"):
+                t_tdb = ctx.epoch0_tdb + t_rel
+                r = y9[..., 0:3]
+                v = y9[..., 3:6]
+                cr = y9[..., 6]
+                cd = y9[..., 7]
+                m_prop = y9[..., 8]
+                mass = p["dry_mass_kg"] + m_prop
+                if pert_f32 and r.dtype == torch.float64 and self.orbital_dyn.models:
+                    with annotate("eom.two_body"):
+                        a = self.orbital_dyn.two_body_accel(ctx, r)
+                    with annotate("eom.gravity"):
+                        ap = self.orbital_dyn.perturbation_accel(ctx, t_tdb, r.to(torch.float32),
+                                                                 v.to(torch.float32))
+                    a = a + ap.to(r.dtype)
+                else:
+                    with annotate("eom.gravity"):
+                        a = self.orbital_dyn.accel(ctx, t_tdb, r, v)
+                if force_models:
+                    # SRP and drag are <= ~1e-9 km/s^2: f32 rounding of the force
+                    # lands far below the integrator tolerance on the total
+                    fdt = torch.float32 if r.dtype == torch.float64 else r.dtype
+                    sc32 = dict(
+                        cr=cr.to(fdt),
+                        cd=cd.to(fdt),
+                        srp_area_m2=p["srp_area_m2"],
+                        drag_area_m2=p["drag_area_m2"],
+                        mass_kg=mass.to(fdt),
+                    )
+                    r32, v32 = r.to(fdt), v.to(fdt)
+                    f = torch.zeros_like(r32)
+                    for fm, name in force_models:
+                        with annotate(name):
+                            f = f + fm.force_per_mass(ctx, t_tdb, r32, v32, sc32)
+                    a = a + f.to(r.dtype)
+                mdot = torch.zeros_like(m_prop)
+                if guidance is not None:
+                    with annotate("eom.guidance"):
+                        u, throttle = guidance.direction_and_throttle(ctx, t_tdb, y9, mode)
+                    f_n = throttle * thruster.thrust_N
+                    a = a + (f_n / (mass * 1e3))[..., None] * u
+                    if decrement_mass:
+                        mdot = -f_n / (thruster.isp_s * STD_GRAVITY_M_S2)
+                zeros = torch.zeros_like(cr)
+                return torch.cat([v, a, torch.stack([zeros, zeros, mdot], dim=-1)], dim=-1)
 
         return eom
 

@@ -31,6 +31,7 @@ from ..parallel.mesh import ensemble_sharding, pad_to_multiple, run_on_shards
 from ..propagators import integrator
 from ..propagators.instance import _secs
 from ..time import Epoch
+from ..tracing import annotate
 from . import encke as enc
 from .multivariate import MvnSpacecraft
 from .results import Results
@@ -93,32 +94,36 @@ class MonteCarlo:
         template = self.random_state.template
         epoch0 = template.epoch
         duration_s = (end_epoch - epoch0).to_seconds()
-        if _y0 is None:
-            y0 = self.generate_states(n, skip, device=device)
-        else:
-            y0 = torch.as_tensor(_y0, dtype=torch.float64).to(device)
-        y0 = self._with_mode_column(prop, y0)
-        dyn = prop.dynamics
-        ctx = dyn.build_context(epoch0, duration_s, almanac, device=device)
-        gp = None
-        if guidance_params is not None:
-            gp = torch.as_tensor(np.asarray(guidance_params), dtype=torch.float64).to(device)
-        chunk = max_lanes_per_call if 0 < max_lanes_per_call < n else n
-        eom, fin = dyn.make_eom(thruster=template.thruster), dyn.make_finally()
-        parts = []
-        for lo in range(0, n, chunk):
-            sl = slice(lo, lo + chunk)
-            ctx_k = ctx
-            if gp is not None:
-                ctx_k = dataclasses.replace(ctx, guidance_params=gp if gp.dim() == 1 else gp[sl])
-            res = integrator.propagate(
-                eom, y0[sl], duration_s, prop.opts, prop.method, finally_fn=fin,
-                eom_args=(ctx_k, self._sc_params()), n_capture=n_capture,
-                capture_stride=capture_stride,
-            )
-            parts.append(self._results(epoch0, end_epoch, res, y0[sl], n_capture,
-                                       self._interp_j2(prop), device))
-        return parts[0] if len(parts) == 1 else Results.concatenate(parts)
+        with annotate("mc.run", lanes=n, seed=self.seed, skip=skip):
+            if _y0 is None:
+                with annotate("mc.draw", rows=skip + n):
+                    y0 = self.generate_states(n, skip, device=device)
+            else:
+                y0 = torch.as_tensor(_y0, dtype=torch.float64).to(device)
+            y0 = self._with_mode_column(prop, y0)
+            dyn = prop.dynamics
+            with annotate("mc.context"):
+                ctx = dyn.build_context(epoch0, duration_s, almanac, device=device)
+            gp = None
+            if guidance_params is not None:
+                gp = torch.as_tensor(np.asarray(guidance_params), dtype=torch.float64).to(device)
+            chunk = max_lanes_per_call if 0 < max_lanes_per_call < n else n
+            eom, fin = dyn.make_eom(thruster=template.thruster), dyn.make_finally()
+            parts = []
+            for lo in range(0, n, chunk):
+                sl = slice(lo, lo + chunk)
+                ctx_k = ctx
+                if gp is not None:
+                    ctx_k = dataclasses.replace(ctx, guidance_params=gp if gp.dim() == 1 else gp[sl])
+                res = integrator.propagate(
+                    eom, y0[sl], duration_s, prop.opts, prop.method, finally_fn=fin,
+                    eom_args=(ctx_k, self._sc_params()), n_capture=n_capture,
+                    capture_stride=capture_stride,
+                )
+                with annotate("mc.gather"):
+                    parts.append(self._results(epoch0, end_epoch, res, y0[sl], n_capture,
+                                               self._interp_j2(prop), device))
+            return parts[0] if len(parts) == 1 else Results.concatenate(parts)
 
     def _run_sharded(self, prop, almanac, end_epoch, n, skip, mesh, y0, guidance_params, **kw):
         """run_until_epoch over the shards of `mesh`: the states drawn once on

@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..tracing import annotate
 from .options import IntegratorOptions
 from .tableaus import IntegratorMethod
 
@@ -122,120 +123,126 @@ def propagate(
         eom = lambda t, y: inner_eom(t, y, *eom_args)  # noqa: E731
         if inner_fin is not None:
             finally_fn = lambda t, y: inner_fin(t, y, *eom_args)  # noqa: E731
-    B, N = y0.shape
-    f64 = dict(dtype=torch.float64, device=y0.device)
-    i32 = dict(dtype=torch.int32, device=y0.device)
-    if isinstance(duration_s, torch.Tensor):
-        dur = duration_s.to(**f64).expand(B)
-    else:
-        dur = torch.full((B,), float(duration_s), **f64)
-    t = torch.zeros(B, **f64)
-    if t0 is not None:
-        t = t + (t0.to(**f64) if isinstance(t0, torch.Tensor) else float(t0))
-    t_stop = t + dur
-    sgn = torch.where(dur < 0, -1.0, torch.ones_like(dur))
-
-    a, b, b_star, c = method.a_matrix, method.b, method.b_star, method.c
-    order = float(method.order)
-    fixed = options.fixed_step or method.is_fixed_only
-    min_step, max_step = options.min_step_s, options.max_step_s
-    tol, max_attempts = options.tolerance, options.attempts
-
-    y = y0 if finally_fn is None else finally_fn(t, y0)
-    h = sgn * min(options.init_step_s, options.max_step_s)
-    status = torch.where(dur == 0.0, DONE, RUNNING).to(torch.int32)
-    attempts = torch.ones(B, **i32)
-    error = torch.zeros(B, **f64)
-    n_acc = torch.zeros(B, **i32)
-    n_rej = torch.zeros(B, **i32)
-    comp = torch.zeros_like(y)  # Kahan compensation of the state updates
-    K = int(n_capture)
-    if K > 0:
-        # column K is a drop slot for lanes that write nothing this step
-        lanes = torch.arange(B, device=y0.device)
-        traj_t = torch.zeros(B, K + 1, **f64)
-        traj_y = torch.zeros(B, K + 1, N, dtype=state_dtype, device=y0.device)
-        traj_len = torch.zeros(B, **i32)
-
-    n_iter = 0
-    for it in range(options.max_iterations):
-        if (it % CHECK_EVERY == 0 or it in _EARLY_CHECKS) and not bool((status == RUNNING).any()):
-            break
-        n_iter = it + 1
-        running = status == RUNNING
-        # clamp the final step to land exactly on the stop time
-        overshoot = (t + h) * sgn > t_stop * sgn
-        h_use = torch.where(overshoot, t_stop - t, h)
-
-        inc, err_vec = _rk_stages(eom, a, b, b_star, c, t, y, h_use)
-        # Kahan-compensated update: the rounding of y + inc is re-injected
-        # into the next accepted step
-        inc_eff = inc + comp
-        next_y = y + inc_eff
-        comp_new = inc_eff - (next_y - y)
-
-        if fixed:
-            err = torch.zeros(B, **f64)
-            accept = torch.ones(B, dtype=torch.bool, device=y0.device)
+    with annotate("integ.propagate", lanes=y0.shape[0]) as span:
+        B, N = y0.shape
+        f64 = dict(dtype=torch.float64, device=y0.device)
+        i32 = dict(dtype=torch.int32, device=y0.device)
+        if isinstance(duration_s, torch.Tensor):
+            dur = duration_s.to(**f64).expand(B)
         else:
-            err = options.error_ctrl(err_vec, next_y, y).to(torch.float64)
-            # A clamped (overshooting) step is NOT force-accepted: the first
-            # step can overshoot, and a rejected clamped step shrinks h and
-            # retries like any other.
-            accept = (
-                (err <= tol)
-                | (torch.abs(h_use) <= min_step * (1 + 1e-12))
-                | (attempts >= max_attempts)
-            )
+            dur = torch.full((B,), float(duration_s), **f64)
+        t = torch.zeros(B, **f64)
+        if t0 is not None:
+            t = t + (t0.to(**f64) if isinstance(t0, torch.Tensor) else float(t0))
+        t_stop = t + dur
+        sgn = torch.where(dur < 0, -1.0, torch.ones_like(dur))
 
-        t_new = t + h_use
-        finished = overshoot | ((t_new - t_stop) * sgn >= 0.0)
-        nan_lane = ~torch.all(torch.isfinite(next_y), dim=-1)
-        do_accept = running & accept
-        do_reject = running & ~accept
+        a, b, b_star, c = method.a_matrix, method.b, method.b_star, method.c
+        order = float(method.order)
+        fixed = options.fixed_step or method.is_fixed_only
+        min_step, max_step = options.min_step_s, options.max_step_s
+        tol, max_attempts = options.tolerance, options.attempts
 
-        # step-size adaptation (signed), f64 pow
-        safe_err = torch.clamp(err, min=1e-300)
-        f_grow = (tol / safe_err) ** (1.0 / order)
-        f_shrink = (tol / safe_err) ** (1.0 / (order - 1.0))
-        grow = 0.9 * torch.abs(h) * f_grow
-        shrink = 0.9 * torch.abs(h_use) * f_shrink
-        if fixed:
-            h_acc = torch.abs(h)
-        else:
-            h_acc = torch.where(err < tol, torch.clamp(grow, max=max_step), torch.abs(h))
-            h_acc = torch.clamp(h_acc, min=min_step)
-        h_rej = torch.clamp(shrink, min=min_step)
-        h = torch.where(do_accept, sgn * h_acc, torch.where(do_reject, sgn * h_rej, h))
-
-        y_out = torch.where(do_accept[:, None], next_y, y)
-        comp = torch.where(do_accept[:, None], comp_new, comp)
-        if finally_fn is not None:
-            y_out = torch.where(do_accept[:, None], finally_fn(t_new, y_out), y_out)
-        y = y_out
-        t = torch.where(do_accept, t_new, t)
-
-        status = torch.where(
-            do_accept & nan_lane,
-            FAILED_NAN,
-            torch.where(do_accept & finished, DONE, status),
-        )
-        n_acc = n_acc + do_accept.to(torch.int32)
-        n_rej = n_rej + do_reject.to(torch.int32)
-        attempts = torch.where(do_accept, 1, torch.where(do_reject, attempts + 1, attempts))
-        error = torch.where(running, err, error)
-
+        y = y0 if finally_fn is None else finally_fn(t, y0)
+        h = sgn * min(options.init_step_s, options.max_step_s)
+        status = torch.where(dur == 0.0, DONE, RUNNING).to(torch.int32)
+        attempts = torch.ones(B, **i32)
+        error = torch.zeros(B, **f64)
+        n_acc = torch.zeros(B, **i32)
+        n_rej = torch.zeros(B, **i32)
+        comp = torch.zeros_like(y)  # Kahan compensation of the state updates
+        K = int(n_capture)
         if K > 0:
-            want = do_accept & (((n_acc - 1) % capture_stride == 0) | finished)
-            slot = torch.where(want, torch.clamp(traj_len, max=K - 1), K).long()
-            traj_t[lanes, slot] = t_new
-            traj_y[lanes, slot] = next_y
-            traj_len = torch.clamp(traj_len + want.to(torch.int32), max=K)
+            # column K is a drop slot for lanes that write nothing this step
+            lanes = torch.arange(B, device=y0.device)
+            traj_t = torch.zeros(B, K + 1, **f64)
+            traj_y = torch.zeros(B, K + 1, N, dtype=state_dtype, device=y0.device)
+            traj_len = torch.zeros(B, **i32)
 
-    res = PropResult(
-        t=t, y=y, status=status, n_accepted=n_acc, n_rejected=n_rej, error=error, step=h,
-        iterations=n_iter,
-    )
-    if K > 0:
-        res = res._replace(traj_t=traj_t[:, :K], traj_y=traj_y[:, :K], traj_len=traj_len)
-    return res
+        n_iter = 0
+        for it in range(options.max_iterations):
+            if it % CHECK_EVERY == 0 or it in _EARLY_CHECKS:
+                with annotate("integ.check"):
+                    running_any = bool((status == RUNNING).any())
+                if not running_any:
+                    break
+            n_iter = it + 1
+            with annotate("integ.step"):
+                running = status == RUNNING
+                # clamp the final step to land exactly on the stop time
+                overshoot = (t + h) * sgn > t_stop * sgn
+                h_use = torch.where(overshoot, t_stop - t, h)
+
+                inc, err_vec = _rk_stages(eom, a, b, b_star, c, t, y, h_use)
+                # Kahan-compensated update: the rounding of y + inc is re-injected
+                # into the next accepted step
+                inc_eff = inc + comp
+                next_y = y + inc_eff
+                comp_new = inc_eff - (next_y - y)
+
+                if fixed:
+                    err = torch.zeros(B, **f64)
+                    accept = torch.ones(B, dtype=torch.bool, device=y0.device)
+                else:
+                    err = options.error_ctrl(err_vec, next_y, y).to(torch.float64)
+                    # A clamped (overshooting) step is NOT force-accepted: the first
+                    # step can overshoot, and a rejected clamped step shrinks h and
+                    # retries like any other.
+                    accept = (
+                        (err <= tol)
+                        | (torch.abs(h_use) <= min_step * (1 + 1e-12))
+                        | (attempts >= max_attempts)
+                    )
+
+                t_new = t + h_use
+                finished = overshoot | ((t_new - t_stop) * sgn >= 0.0)
+                nan_lane = ~torch.all(torch.isfinite(next_y), dim=-1)
+                do_accept = running & accept
+                do_reject = running & ~accept
+
+                # step-size adaptation (signed), f64 pow
+                safe_err = torch.clamp(err, min=1e-300)
+                f_grow = (tol / safe_err) ** (1.0 / order)
+                f_shrink = (tol / safe_err) ** (1.0 / (order - 1.0))
+                grow = 0.9 * torch.abs(h) * f_grow
+                shrink = 0.9 * torch.abs(h_use) * f_shrink
+                if fixed:
+                    h_acc = torch.abs(h)
+                else:
+                    h_acc = torch.where(err < tol, torch.clamp(grow, max=max_step), torch.abs(h))
+                    h_acc = torch.clamp(h_acc, min=min_step)
+                h_rej = torch.clamp(shrink, min=min_step)
+                h = torch.where(do_accept, sgn * h_acc, torch.where(do_reject, sgn * h_rej, h))
+
+                y_out = torch.where(do_accept[:, None], next_y, y)
+                comp = torch.where(do_accept[:, None], comp_new, comp)
+                if finally_fn is not None:
+                    y_out = torch.where(do_accept[:, None], finally_fn(t_new, y_out), y_out)
+                y = y_out
+                t = torch.where(do_accept, t_new, t)
+
+                status = torch.where(
+                    do_accept & nan_lane,
+                    FAILED_NAN,
+                    torch.where(do_accept & finished, DONE, status),
+                )
+                n_acc = n_acc + do_accept.to(torch.int32)
+                n_rej = n_rej + do_reject.to(torch.int32)
+                attempts = torch.where(do_accept, 1, torch.where(do_reject, attempts + 1, attempts))
+                error = torch.where(running, err, error)
+
+                if K > 0:
+                    want = do_accept & (((n_acc - 1) % capture_stride == 0) | finished)
+                    slot = torch.where(want, torch.clamp(traj_len, max=K - 1), K).long()
+                    traj_t[lanes, slot] = t_new
+                    traj_y[lanes, slot] = next_y
+                    traj_len = torch.clamp(traj_len + want.to(torch.int32), max=K)
+
+        res = PropResult(
+            t=t, y=y, status=status, n_accepted=n_acc, n_rejected=n_rej, error=error, step=h,
+            iterations=n_iter,
+        )
+        span.set(iterations=n_iter)
+        if K > 0:
+            res = res._replace(traj_t=traj_t[:, :K], traj_y=traj_y[:, :K], traj_len=traj_len)
+        return res

@@ -75,6 +75,7 @@ try:
 except ImportError:  # a machine with a card but no JAX runs the cuda test alone
     jax = R = None
 
+import chip_smoke
 import nyx_tpu_torch as P
 from nyx_tpu_torch import errors, interop, plots, polyfit, tracing, xmath
 from nyx_tpu_torch import time as ptime
@@ -431,10 +432,40 @@ def test_builds_hold_one_lock(monkeypatch):
     assert most[0] == 1
 
 
+def test_launch_tally_by_thread_keeps_the_kernels_counter():
+    """chip_smoke's tally of kernel launches by host thread stands in the
+    module's global while it is open: a kernel that adds to its counter
+    through that global, as `gravity_pines.pines_accel_cuda` does, still
+    counts every launch from every thread, and the kernel is put back."""
+    import types
+
+    gp = types.ModuleType("kernel_module")
+    exec("import threading\n"
+         "COUNT_LOCK = threading.Lock()\n"
+         "def pines_accel_cuda(x):\n"
+         "    with COUNT_LOCK:\n"
+         "        pines_accel_cuda.launches += 1\n"
+         "    return x\n"
+         "pines_accel_cuda.launches = 0\n", gp.__dict__)
+    kernel = gp.pines_accel_cuda
+    with chip_smoke._launches_by_thread(gp) as tally:
+        gp.pines_accel_cuda.launches = 0
+        ts = [threading.Thread(target=lambda: [gp.pines_accel_cuda(k) for k in range(50)],
+                               name=f"shard{i}") for i in range(3)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        assert gp.pines_accel_cuda.launches == 150
+    assert gp.pines_accel_cuda is kernel and kernel.launches == 150
+    assert dict(tally) == {"shard0": 50, "shard1": 50, "shard2": 50}
+
+
 @pytest.mark.cuda
 def test_shards_on_one_card():
     """Three shards of cuda:0 launch the kernel from three threads, in turn,
-    on streams of their own: every launch counted, results equal to the
+    on streams of their own: every launch counted, by the kernel's counter
+    and by chip_smoke's tally by thread, results equal to the
     unsharded kernel's to the bit, no twin call on CUDA."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -446,10 +477,12 @@ def test_shards_on_one_card():
     gravity_pines.pines_accel_cuda.launches = 0
     gravity_pines.pines_accel_torch.cuda_calls = 0
     mesh = pmesh.Mesh(("cuda:0",) * 3)
-    parts = pmesh.run_on_shards(mesh, lambda k, dev: [gravity_pines.pines_accel_cuda(
-        r[k * 1000:(k + 1) * 1000].contiguous(), tab, 0, **field.pines_args())
-        for _ in range(50)][-1])
+    with chip_smoke._launches_by_thread(gravity_pines) as tally:
+        parts = pmesh.run_on_shards(mesh, lambda k, dev: [gravity_pines.pines_accel_cuda(
+            r[k * 1000:(k + 1) * 1000].contiguous(), tab, 0, **field.pines_args())
+            for _ in range(50)][-1])
     assert gravity_pines.pines_accel_cuda.launches == 150
+    assert sorted(tally.values()) == [50, 50, 50]
     assert gravity_pines.pines_accel_torch.cuda_calls == 0
     assert torch.equal(torch.cat(parts), whole)
 
