@@ -21,7 +21,17 @@ raises and exits non-zero:
    and 10,000), and time the kernel on the card at B = 10,000 beside its
    bound, the lunar field at B = 1 and 288, and the twin and the parent's
    kernel at 21x21;
-4. run the main path, after a 120 s warm-up arc, and count kernel launches;
+3b. hold the fused EOM (csrc/eom.cu: eom_pre, the Pines kernel, eom_post)
+   against the composed PyTorch EOM on the same card tensors at Config 2's
+   composition with the 21x21 and the 70x70 field, at B = 10,000 LEO lanes
+   spread over the day (accelerations within 1e-12 km/s^2, the Pines input
+   within 2 f32 ulps of the composed rotation, the velocity columns equal
+   and the last three zero, one fused and one composed evaluation counted);
+   time eom_pre and eom_post at B = 10,000 and at 2M lanes beside the least
+   time their bytes take, and one whole evaluation fused and composed back
+   to back from the host;
+4. run the main path, after a 120 s warm-up arc, and count kernel launches
+   and fused EOM evaluations (one a Pines launch: every evaluation fused);
 5. rerun 64 of its lanes over the day's first hour through the kernel and
    with the gravity twin forced, and compare finals;
 6. the same ensemble with 70x70 JGM3 split gravity over a quarter hour,
@@ -202,7 +212,8 @@ The second-to-last line of output is the kernels' JSON summary, the last
 line `{"ok": true, "device": {...}}`. In the summary `ms` is the card's
 time a call, from a CUDA graph of 20 calls replayed back to back
 (`ms_timing`); `eager_ms` is the time a call made back to back from the
-host, as the main path makes them. Run from the repository root:
+host, as the main path makes them (for `eom_post`, one whole fused
+evaluation, and `plain_eager_ms` the composed one's). Run from the repository root:
 
     python3 chip_smoke.py
 """
@@ -247,6 +258,16 @@ TWIN_FINAL_TOL_KM = 1e-3
 # Config 3's did).
 TWIN_PREFIX_S = 3600.0
 SECONDS_70X70 = 900.0
+# Phase 3b, the fused EOM against the composed one: the card test's bounds
+# (tests/test_torch_fused_eom.py; room for the f32 field's rounding, the H100
+# gave 0 and 0), the benchmark's width, and the bytes a lane moves (t and y
+# in, 80; eom_pre writes r_bf, 12; eom_post reads a_bf, 12, and writes ydot,
+# 72).
+FUSED_TOL_KM_S2 = 1e-12
+FUSED_PRE_ULPS = 2
+B_FUSED_WIDE = 2_000_000
+EOM_PRE_BYTES = 92
+EOM_POST_BYTES = 164
 # The OD legs' warm-up arc, whose rows the twin and f64 reruns repeat (2 h
 # until Config 3's phase needed the time, 1 h until the scan filter's modes
 # did), and the flagship leg's timed arc,
@@ -1131,30 +1152,138 @@ def phase_kernel_vs_twin(gp, fields, parent):
                 eager_ms=eager_ms, twin_eager_ms=twin_eager_ms, parent_eager_ms=parent_eager_ms)
 
 
+def _f32_ulps(a, b) -> int:
+    """Largest distance in f32 units in the last place between `a` and `b`."""
+    ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def _leo_lanes(B: int, seed: int, day_s: float = 86_400.0):
+    """(t_rel [B], y [B, 9]) on the card: LEO radii in random directions,
+    circular speeds in random directions, Config 2's Cr and Cd, times
+    spread over `day_s`."""
+    from nyx_tpu_torch import Frames
+
+    r = _body_fixed(B, seed)
+    rng = np.random.default_rng(seed + 1)
+    rmag = np.linalg.norm(r, axis=1, keepdims=True)
+    w = rng.normal(size=(B, 3))
+    w -= np.sum(w * r, axis=1, keepdims=True) * r / rmag**2
+    v = w / np.linalg.norm(w, axis=1, keepdims=True) * np.sqrt(Frames.EME2000.mu / rmag)
+    y = np.concatenate([r, v, np.tile([1.8, 2.2, 0.0], (B, 1))], axis=1)
+    k = dict(dtype=torch.float64, device="cuda")
+    return torch.as_tensor(rng.uniform(0.0, day_s, B), **k), torch.as_tensor(y, **k)
+
+
+def phase_fused_eom(gp, fields, epoch, sc_params):
+    """Phase 3b: the fused EOM (dynamics/fused_eom.py, csrc/eom.cu) against
+    the composed PyTorch EOM on the same card tensors, at Config 2's
+    composition (split field, SRP with the Earth's shadow, exponential drag)
+    with the 21x21 and the 70x70 field, at B_MAIN lanes; then eom_pre and
+    eom_post timed at B_MAIN and B_FUSED_WIDE beside the least time their
+    bytes take, and one whole evaluation, fused and composed, back to back
+    from the host. Returns the summary's numbers."""
+    from nyx_tpu_torch import Frames
+    from nyx_tpu_torch.constants import NAIF, RADIUS_BY_NAIF
+    from nyx_tpu_torch.cosmic.eclipse import illumination_factor
+    from nyx_tpu_torch.cosmic.rotations import apply_dcm, iau_earth_dcm32_pole
+    from nyx_tpu_torch.dynamics import Drag, OrbitalDynamics, SolarPressure, SpacecraftDynamics
+    from nyx_tpu_torch.dynamics import fused_eom as F
+    from nyx_tpu_torch.ephem import Almanac
+
+    t_phase = time.perf_counter()
+    alm = Almanac()
+    t, y = _leo_lanes(B_MAIN, 3000 + B_MAIN)
+    out = dict(max_gap=0.0, max_ulps=0, eager_ms={}, plain_eager_ms={})
+    for name in ("21x21", "70x70"):
+        dyn = SpacecraftDynamics(OrbitalDynamics.from_model(fields[name], Frames.EME2000),
+                                 (SolarPressure.default(), Drag.earth_exp()))
+        plan = F.plan_for(dyn, with_stm=False)
+        if plan is None:
+            raise RuntimeError(f"fused EOM: Config 2's composition at {name} has no fused plan")
+        ctx = dyn.build_context(epoch, 86_400.0, alm, device="cuda")
+        eom = dyn.make_eom()
+        n0 = (F.fused_eom.launches, F.fused_eom.composed_calls, gp.pines_accel_cuda.launches)
+        fused = eom(t, y, ctx, sc_params)
+        composed = eom.composed(t, y, ctx, sc_params)
+        torch.cuda.synchronize()
+        moved = (F.fused_eom.launches - n0[0], F.fused_eom.composed_calls - n0[1],
+                 gp.pines_accel_cuda.launches - n0[2])
+        gap = (fused[:, 3:6] - composed[:, 3:6]).abs().max().item()
+        n_diff = int((fused[:, 3:6] != composed[:, 3:6]).any(dim=1).sum())
+        same_v = torch.equal(fused[:, :3], y[:, 3:6]) and torch.equal(fused[:, :3], composed[:, :3])
+        zero = not bool(fused[:, 6:].any())
+        c = plan.consts(ctx, sc_params)
+        dcm32, _ = iau_earth_dcm32_pole(ctx.epoch0_tdb + t)
+        ulps = _f32_ulps(F.eom_pre(t, y, c), apply_dcm(dcm32, y[:, :3].to(torch.float32)))
+        r32 = y[:, :3].to(torch.float32)
+        sun_pos = ctx.table.position(ctx.table.index_of(NAIF.SUN), ctx.epoch0_tdb + t, dtype=torch.float32)
+        k = illumination_factor(sun_pos - r32, [(-r32, RADIUS_BY_NAIF[NAIF.EARTH])])
+        fused_ms = _eager_ms(lambda: eom(t, y, ctx, sc_params))
+        composed_ms = _eager_ms(lambda: eom.composed(t, y, ctx, sc_params))
+        _log(f"fused EOM vs composed, Config 2 at {name}, B={B_MAIN} ({int((k == 1).sum())} sunlit, "
+             f"{int(((k > 0) & (k < 1)).sum())} penumbral, {int((k == 0).sum())} umbral lanes): "
+             f"acceleration gap {gap:.3e} km/s^2 ({n_diff} lanes differ), eom_pre within {ulps} f32 ulps "
+             f"of the composed rotation, velocities equal {same_v}, columns 6-8 zero {zero}; "
+             f"(fused, composed, Pines) counters moved by {moved}; one evaluation back to back from the "
+             f"host: fused {fused_ms:.4f} ms, composed {composed_ms:.4f} ms")
+        if moved != (1, 1, 2):
+            raise RuntimeError(f"fused EOM at {name}: counters moved by {moved}, not (1, 1, 2)")
+        if not (gap <= FUSED_TOL_KM_S2 and ulps <= FUSED_PRE_ULPS and same_v and zero):
+            raise RuntimeError(f"fused EOM at {name}: gap {gap} km/s^2 (bound {FUSED_TOL_KM_S2}), "
+                               f"eom_pre {ulps} ulps (bound {FUSED_PRE_ULPS}), velocities equal "
+                               f"{same_v}, columns 6-8 zero {zero}")
+        out["max_gap"], out["max_ulps"] = max(out["max_gap"], gap), max(out["max_ulps"], ulps)
+        out["eager_ms"][name], out["plain_eager_ms"][name] = fused_ms, composed_ms
+        if name != "21x21":
+            continue
+        tab, kw = plan.field.packed_table(0, torch.float32, "cuda"), plan.field.pines_args()
+        sun = ctx.table.coeffs[ctx.table.index_of(NAIF.SUN)]
+        for B in (B_MAIN, B_FUSED_WIDE):
+            tB, yB = (t, y) if B == B_MAIN else _leo_lanes(B, 3000 + B)
+            a_bf = gp.pines_accel_cuda(F.eom_pre(tB, yB, c), tab, 0, **kw)
+            pre_ms = _time_ms(lambda: F.eom_pre(tB, yB, c))
+            post_ms = _time_ms(lambda: F.eom_post(tB, yB, a_bf, sun, c))
+            pre_bound, post_bound = (1e3 * B * n / HBM_BYTES_PER_S for n in (EOM_PRE_BYTES, EOM_POST_BYTES))
+            _log(f"fused EOM kernels at B={B}: eom_pre {pre_ms:.4f} ms per call, bound {pre_bound:.4f} ms "
+                 f"(bytes, {100 * pre_bound / pre_ms:.1f} %); eom_post {post_ms:.4f} ms per call, bound "
+                 f"{post_bound:.4f} ms (bytes, {100 * post_bound / post_ms:.1f} %)")
+            out[B] = dict(pre_ms=pre_ms, pre_bound=pre_bound, post_ms=post_ms, post_bound=post_bound)
+            del tB, yB, a_bf
+    _log(f"fused EOM phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def run_and_rerun(mc_seed, mvn, propagator, alm, start, seconds, gp, label):
     """A B_MAIN-lane ensemble through the kernel, with its launches counted
     from 0, then B_TWIN of its lanes through the gravity twin over the arc's
     first min(seconds, TWIN_PREFIX_S), held against the ensemble's finals
     where that is the whole arc, else against a fresh B_TWIN-lane kernel
-    run of the prefix. Returns the launches and the kernel's Results over
-    the prefix (its first B_TWIN lanes are the twin's)."""
+    run of the prefix. Every EOM evaluation of the ensemble is fused (one
+    fused evaluation a kernel launch). Returns the launches, the fused
+    evaluations and the kernel's Results over the prefix (its first B_TWIN
+    lanes are the twin's)."""
+    from nyx_tpu_torch.dynamics.fused_eom import fused_eom
     from nyx_tpu_torch.mc import MonteCarlo
 
     end = start + seconds
     gp.pines_accel_cuda.launches = 0
     gp.pines_accel_torch.cuda_calls = 0
+    fused_eom.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = MonteCarlo(mvn, seed=mc_seed).run_until_epoch(propagator("auto"), alm, end, B_MAIN, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = gp.pines_accel_cuda.launches
+    launches, fused = gp.pines_accel_cuda.launches, fused_eom.launches
     twin_cuda_calls = gp.pines_accel_torch.cuda_calls
     _log(f"{label}: B={B_MAIN}, {seconds} s arc, wall {wall:.3f} s, "
          f"{res.n_ok / wall:.2f} traj/s, mean accepted steps {float(np.mean(res.n_accepted)):.2f}, "
          f"mean rejected {float(np.mean(res.n_rejected)):.2f}, iterations {res.iterations}, "
          f"n_ok/n_runs {res.n_ok}/{res.n_runs}, kernel launches {launches}, "
-         f"twin CUDA calls {twin_cuda_calls}")
+         f"fused EOM evaluations {fused}, twin CUDA calls {twin_cuda_calls}")
     if res.n_ok != res.n_runs:
         raise RuntimeError(f"{label}: {res.n_ok}/{res.n_runs} lanes ok")
     if res.y_final.shape != (B_MAIN, 9) or not np.isfinite(res.y_final).all():
@@ -1164,6 +1293,9 @@ def run_and_rerun(mc_seed, mvn, propagator, alm, start, seconds, gp, label):
             f"{label} did not run through the kernel: {launches} launches, "
             f"{twin_cuda_calls} twin calls on CUDA"
         )
+    if fused != launches:
+        raise RuntimeError(f"{label}: {fused} fused EOM evaluations for {launches} kernel launches "
+                           f"(every evaluation launches the kernel once, and every one should fuse)")
 
     y0 = res.y_initial[:B_TWIN]
     twin_seconds = min(seconds, TWIN_PREFIX_S)
@@ -1181,7 +1313,7 @@ def run_and_rerun(mc_seed, mvn, propagator, alm, start, seconds, gp, label):
          f"{float(np.mean(twin.n_accepted)):.2f} vs {float(np.mean(kernel.n_accepted[:B_TWIN])):.2f}")
     if not d_km < TWIN_FINAL_TOL_KM:
         raise RuntimeError(f"{label}: kernel and twin runs differ by {d_km} km >= {TWIN_FINAL_TOL_KM}")
-    return launches, kernel
+    return launches, fused, kernel
 
 
 def _head(arc, seconds: float):
@@ -3458,10 +3590,16 @@ def main() -> None:
     }
     k3 = phase_kernel_vs_twin(gp, fields, parent)
 
-    # phases 4 and 5: the main path, Config 2, and its twin rerun
+    # phase 3b: the fused EOM against the composed one at Config 2's composition
     epoch = Epoch.from_gregorian_utc(2021, 3, 4)
     orbit = Orbit.keplerian(7136.6, 2e-4, 51.6, 30.0, 65.0, 80.0, epoch, Frames.EME2000)
     sc = Spacecraft.new(orbit, 100.0, 0.0, 2.0, 2.0, 1.8, 2.2)
+    built = _cuda.load("eom")
+    _log(f"built eom: {built.path} in {built.seconds:.2f} s")
+    k3b = phase_fused_eom(gp, fields, epoch, dict(dry_mass_kg=sc.dry_mass_kg, srp_area_m2=sc.srp_area_m2,
+                                                  drag_area_m2=sc.drag_area_m2))
+
+    # phases 4 and 5: the main path, Config 2, and its twin rerun
 
     def propagator_for(stor):
         def propagator(backend):
@@ -3486,11 +3624,11 @@ def main() -> None:
                                                     device="cuda")
     if warm.n_ok != warm.n_runs:
         raise RuntimeError(f"warm-up: {warm.n_ok}/{warm.n_runs} lanes ok")
-    launches, kernel64 = run_and_rerun(42, mvn, prop21, alm, epoch, args.duration_s, gp, "main path")
+    launches, fused, kernel64 = run_and_rerun(42, mvn, prop21, alm, epoch, args.duration_s, gp, "main path")
 
     # phase 6: 70x70 JGM3 split over a quarter hour through the kernel, and its twin rerun
-    launches70, _ = run_and_rerun(42, mvn, propagator_for(stor70), alm, epoch, SECONDS_70X70, gp,
-                                  "70x70 path")
+    launches70, fused70, _ = run_and_rerun(42, mvn, propagator_for(stor70), alm, epoch, SECONDS_70X70,
+                                           gp, "70x70 path")
 
     # phase 6b: the OD leg; 6c: the flagship OD leg on its truth
     stor21 = GravityFieldData.from_cof(jgm3, 21, 21, True, Frames.IAU_EARTH)
@@ -3601,6 +3739,40 @@ def main() -> None:
         "mesh_traj_per_s": mesh["traj_per_s"],
         "mesh_shards": mesh["shards"],
         "mesh_max_gap_km": mesh["max_gap_km"],
+    }, {
+        "name": "eom_pre",
+        "route": "cuda",
+        "source": "nyx_tpu_torch/csrc/eom.cu",
+        "replaces": None,
+        "launches": fused,
+        "max_ulps": k3b["max_ulps"],
+        "ms": k3b[B_MAIN]["pre_ms"],
+        "ms_timing": "cuda_graph_replay",
+        "bound_ms": k3b[B_MAIN]["pre_bound"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        f"ms_b{B_FUSED_WIDE}": k3b[B_FUSED_WIDE]["pre_ms"],
+        f"bound_ms_b{B_FUSED_WIDE}": k3b[B_FUSED_WIDE]["pre_bound"],
+        "launches_70x70": fused70,
+    }, {
+        "name": "eom_post",
+        "route": "cuda",
+        "source": "nyx_tpu_torch/csrc/eom.cu",
+        "replaces": None,
+        "launches": fused,
+        "max_abs_err": k3b["max_gap"],
+        "ms": k3b[B_MAIN]["post_ms"],
+        "ms_timing": "cuda_graph_replay",
+        "eager_ms": k3b["eager_ms"]["21x21"],
+        "plain_eager_ms": k3b["plain_eager_ms"]["21x21"],
+        "bound_ms": k3b[B_MAIN]["post_bound"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        f"ms_b{B_FUSED_WIDE}": k3b[B_FUSED_WIDE]["post_ms"],
+        f"bound_ms_b{B_FUSED_WIDE}": k3b[B_FUSED_WIDE]["post_bound"],
+        "launches_70x70": fused70,
+        "eager_ms_70x70": k3b["eager_ms"]["70x70"],
+        "plain_eager_ms_70x70": k3b["plain_eager_ms"]["70x70"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

@@ -10,6 +10,10 @@ The force models evaluate in float32 and their sum is cast back to the
 state dtype. With `pert_precision="f32"` the orbital perturbations (the
 field, third bodies, tides) also run on float32 r and v, and their sum is
 cast back; two-body stays at the state dtype.
+On the card, the compositions that `fused_eom.plan_for` names evaluate in
+two hand-written kernels around the Pines launch (`csrc/eom.cu`), with the
+same operations in the same order; every other evaluation, and every one
+on the CPU, runs the composed EOM below.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from ..errors import ConfigError
 from ..time import Epoch
 from ..tracing import annotate
 from ..xmath import FORWARD_AD
+from .fused_eom import fused_eom, plan_for
+from .gravity_pines import COUNT_LOCK
 from .orbital import EomContext, OrbitalDynamics
 
 CORE_DIM = 9
@@ -129,11 +135,26 @@ class SpacecraftDynamics:
         independent, so it is the [B, 9] EOM's value bit for bit. Guided,
         the state is [B, 91], the mode last (the reference's layout,
         spacecraft_dyn.py:189-213), and A includes the thrust's
-        dependence on the state through the law's direction and the mass."""
+        dependence on the state through the law's direction and the mass.
+
+        Where `fused_eom.plan_for` accepts the composition, the returned
+        EOM runs `fused_eom` on each input that `FusedPlan.declines` does
+        not decline, and on the rest the composed EOM, which its `composed`
+        attribute holds."""
         core = self._core_eom(thruster)
         guided = self.has_guidance
         if guided and thruster is None:
             raise ConfigError("guided dynamics need the spacecraft's thruster")
+        plan = plan_for(self, with_stm)
+        if plan is not None:
+            def fused_or_composed(t_rel, y, ctx, p):
+                if plan.declines(t_rel, y):
+                    return core(t_rel, y, ctx, p)
+                with annotate("eom.call"):
+                    return fused_eom(plan, t_rel, y, ctx, p)
+
+            fused_or_composed.composed = core
+            return fused_or_composed
         if guided and not with_stm:
             def guided_eom(t_rel, y, ctx, p):
                 ydot = core(t_rel, y[:, :CORE_DIM], ctx, p, y[:, CORE_DIM])
@@ -181,6 +202,8 @@ class SpacecraftDynamics:
             for fm in self.force_models)
 
         def eom(t_rel, y9, ctx, p, mode=None):
+            with COUNT_LOCK:
+                fused_eom.composed_calls += 1
             with annotate("eom.call"):
                 t_tdb = ctx.epoch0_tdb + t_rel
                 r = y9[..., 0:3]
